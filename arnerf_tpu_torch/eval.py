@@ -18,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from .opt import get_opts, resolve_compute_dtype
+from .opt import get_opts, model_config
 
 UNPORTED_FLAGS = ("--mesh", "--grid_vis", "--cam_vis")
 
@@ -38,7 +38,7 @@ def main(argv=None) -> dict:
     from .datasets import dataset_dict
     from .datasets.ray_utils import get_rays
     from .device import resolve_device
-    from .models import NGPConfig, grid_state_init, ngp_init
+    from .models import grid_state_init, ngp_init
     from .rendering import render_test
     from .training.ckpt import load_ckpt
     from .training.metrics import psnr as psnr_fn, ssim as ssim_fn
@@ -53,13 +53,7 @@ def main(argv=None) -> dict:
         split="test", root_dir=hparams.root_dir,
         downsample=hparams.downsample, device=device)
 
-    rgb_act = "None" if (hparams.use_exposure or hparams.use_EXR) \
-        else "Sigmoid"
-    cfg = NGPConfig(scale=hparams.scale, rgb_act=rgb_act,
-                    use_raw_hdr=hparams.use_EXR,
-                    compute_dtype=resolve_compute_dtype(
-                        hparams.compute_dtype, device),
-                    fused_head=device.type == "cuda")
+    cfg = model_config(hparams, device)
     params, grid_state, _ = load_ckpt(
         hparams.ckpt_path,
         params_template=ngp_init(cfg, torch.Generator().manual_seed(0),

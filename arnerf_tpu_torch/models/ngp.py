@@ -5,8 +5,14 @@ Parameters are a plain dict of tensors with the JAX package's layout
 (`hash_table`, `sigma_mlp` [W0, W1], `rgb_mlp` [V0, V1, V2], optional
 `tonemappers`), so training/ckpt.py converts checkpoints key for key.
 
-The occupancy-grid updates (update_density_grid, mark_invisible_cells)
-come with the training path; the render path only reads `occ_flat`.
+`seed` (a uint32 int) selects the stochastic single-corner hash encode on
+the training paths (ops/hashgrid.py); None is the exact trilerp.
+
+The occupancy grid is maintained by `mark_invisible_cells` and
+`update_density_grid`. The latter is split in two: a deterministic core
+that takes the sampled cells, the jitter uniforms and the corner seed, and
+a wrapper that draws them from torch generators (jax.random's draws cannot
+be reproduced in torch, so the parity tests feed the core JAX's draws).
 """
 
 from dataclasses import dataclass
@@ -17,6 +23,9 @@ import torch
 
 from ..ops.hashgrid import (HashGridConfig, hashgrid_init, hashgrid_encode,
                             ngp_growth_factor)
+from ..ops.packbits import packbits
+from ..ops.segments import dense_segment_max
+from ..ops.stepping import fma
 from ..ops.sh import sh_encode
 from ..ops.trunc_exp import trunc_exp
 from .mlp import mlp_init, mlp_apply
@@ -89,16 +98,21 @@ def ngp_init(cfg: NGPConfig, generator: torch.Generator = None,
     return params
 
 
-def _encode(params, x, cfg: NGPConfig):
+NEAR_DISTANCE = 0.01  # reference: models/rendering.py:10
+
+
+def _encode(params, x, cfg: NGPConfig, seed=None):
     xn = (x + cfg.scale) / (2 * cfg.scale)
     table = params["hash_table"].to(cfg.cdtype)
-    return hashgrid_encode(table, xn, cfg.hash_cfg)
+    return hashgrid_encode(table, xn, cfg.hash_cfg, seed=seed)
 
 
-def ngp_density(params, x, cfg: NGPConfig, return_feat: bool = False):
+def ngp_density(params, x, cfg: NGPConfig, return_feat: bool = False,
+                seed=None):
     """x: (N, 3) world positions in [-scale, scale]^3 -> sigmas (N,).
+    seed: None, or a uint32 int for stochastic-corner hash gathers.
     reference: models/networks.py:95-108."""
-    feats = _encode(params, x, cfg)
+    feats = _encode(params, x, cfg, seed)
     h = mlp_apply(params["sigma_mlp"], feats, dtype=cfg.cdtype)
     sigmas = trunc_exp(h[:, 0].float())
     if return_feat:
@@ -118,15 +132,16 @@ def ngp_log_radiance_to_rgb(params, log_radiances, exposure=None):
 
 
 def ngp_forward(params, x, d, cfg: NGPConfig, exposure=None,
-                output_radiance: bool = False):
+                output_radiance: bool = False, seed=None):
     """x, d: (N, 3) -> (sigmas (N,), rgbs (N, 3)).
+    seed: None, or a uint32 int for stochastic-corner hash gathers.
     reference: models/networks.py:133-165."""
     d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
     d_enc = sh_encode(d)
     if cfg.fused_head:
         from ..ops.fused_head import fused_field_head, \
             head_weights_from_params
-        feats = _encode(params, x, cfg)
+        feats = _encode(params, x, cfg, seed)
         h, rgbs = fused_field_head(feats, d_enc,
                                    head_weights_from_params(params),
                                    cfg.cdtype)
@@ -134,7 +149,7 @@ def ngp_forward(params, x, d, cfg: NGPConfig, exposure=None,
         if cfg.rgb_act == "Sigmoid":
             rgbs = torch.sigmoid(rgbs)
     else:
-        sigmas, h = ngp_density(params, x, cfg, return_feat=True)
+        sigmas, h = ngp_density(params, x, cfg, return_feat=True, seed=seed)
         rgb_in = torch.cat([d_enc.to(cfg.cdtype), h.to(cfg.cdtype)], dim=1)
         act = "sigmoid" if cfg.rgb_act == "Sigmoid" else None
         rgbs = mlp_apply(params["rgb_mlp"], rgb_in, out_activation=act,
@@ -153,19 +168,23 @@ def ngp_forward(params, x, d, cfg: NGPConfig, exposure=None,
 
 
 def ngp_forward_chunked(params, x, d, cfg: NGPConfig, exposure=None,
-                        output_radiance: bool = False, chunk: int = 1 << 18):
+                        output_radiance: bool = False, chunk: int = 1 << 18,
+                        seed=None):
     """ngp_forward over large point sets in chunks of `chunk` rows. A render
     round holds ~2M samples; unchunked, the (N, 16, 8) int64 hash-index
-    tensor alone would take 2 GB."""
+    tensor alone would take 2 GB. Chunk i takes seed + i: the hash RNG's
+    counter is local to each call, so chunks would otherwise share their
+    corner draws (ngp.py:395-401)."""
     n = x.shape[0]
     if n <= chunk:
         return ngp_forward(params, x, d, cfg, exposure=exposure,
-                           output_radiance=output_radiance)
+                           output_radiance=output_radiance, seed=seed)
     sig, col = [], []
-    for i in range(0, n, chunk):
+    for ci, i in enumerate(range(0, n, chunk)):
         e = None if exposure is None else exposure[i:i + chunk]
         s, c = ngp_forward(params, x[i:i + chunk], d[i:i + chunk], cfg,
-                           exposure=e, output_radiance=output_radiance)
+                           exposure=e, output_radiance=output_radiance,
+                           seed=None if seed is None else seed + ci)
         sig.append(s)
         col.append(c)
     return torch.cat(sig), torch.cat(col)
@@ -191,3 +210,174 @@ def grid_state_init(cfg: NGPConfig, device="cpu") -> GridState:
         bitfield=torch.zeros((C * G3 // 8,), dtype=torch.uint8,
                              device=device),
     )
+
+
+def _cell_coords(idx, G: int):
+    """Linear cell index -> integer (x, y, z), layout [x, y, z] row-major
+    (ops/marching.py's flat index ((c*G + x)*G + y)*G + z)."""
+    return torch.stack([idx // (G * G), (idx // G) % G, idx % G], dim=-1)
+
+
+def _cells_to_world(coords, mip, cfg: NGPConfig, jitter=None):
+    """Grid coords (+ optional in-cell jitter from uniforms `jitter`, same
+    shape as coords) -> world xyz for cascade mip.
+    reference: models/networks.py:263-267."""
+    G = cfg.grid_size
+    s = torch.clamp(torch.exp2(mip.to(torch.float32) - 1.0), max=cfg.scale)
+    half = s / G
+    xyz = coords.to(torch.float32) / (G - 1) * 2.0 - 1.0
+    xyz = xyz * (s - half)[..., None]
+    if jitter is not None:
+        # one rounding, as XLA contracts the jitter into an FMA
+        xyz = fma(jitter * 2.0 - 1.0, half[..., None], xyz)
+    return xyz
+
+
+@torch.no_grad()
+def _chunked_density(params, cfg: NGPConfig, xyz, chunk: int = 1 << 18,
+                     seed=None):
+    """ngp_density over a large point set in chunks; chunk i takes seed + i
+    (the hash RNG's counter is local to each call, ngp.py:237-242)."""
+    return torch.cat([
+        ngp_density(params, xyz[i:i + chunk], cfg,
+                    seed=None if seed is None else seed + ci)
+        for ci, i in enumerate(range(0, xyz.shape[0], chunk))])
+
+
+@torch.no_grad()
+def mark_invisible_cells(state: GridState, K, poses, cfg: NGPConfig,
+                         img_w: int, img_h: int,
+                         chunk: int = 1 << 16) -> GridState:
+    """Flag cells outside every camera frustum with density -1 (never
+    occupied); store per-cell camera coverage in count_grid. Visible cells
+    keep any trained density (checkpoint resumes).
+    reference: models/networks.py:209-250."""
+    G, C = cfg.grid_size, cfg.cascades
+    G3 = G ** 3
+    dev = state.density_grid.device
+    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
+    n_cams = poses.shape[0]
+    w2c_R = poses[:, :3, :3].transpose(1, 2)                   # (N, 3, 3)
+    w2c_T = -torch.einsum("nij,nj->ni", w2c_R, poses[:, :3, 3])
+    coords = _cell_coords(torch.arange(G3, device=dev), G)
+    counts, grids = [], []
+    for c in range(C):
+        mip = torch.full((G3,), c, dtype=torch.int64, device=dev)
+        xyz = _cells_to_world(coords, mip, cfg)
+        count, too_near = [], []
+        for i in range(0, G3, chunk):
+            x = xyz[i:i + chunk]
+            xc = torch.einsum("nij,mj->nmi", w2c_R, x) + w2c_T[:, None, :]
+            uvd = torch.einsum("ij,nmj->nmi", K, xc)          # (N, m, 3)
+            z = uvd[..., 2:]
+            uv = uvd[..., :2] / torch.where(torch.abs(z) > 1e-9, z, 1e-9)
+            in_image = ((uvd[..., 2] >= 0)
+                        & (uv[..., 0] >= 0) & (uv[..., 0] < img_w)
+                        & (uv[..., 1] >= 0) & (uv[..., 1] < img_h))
+            covered = (uvd[..., 2] >= NEAR_DISTANCE) & in_image
+            # times the float32 reciprocal, as XLA rewrites the division
+            count.append(covered.sum(dim=0).to(torch.float32)
+                         * float(np.float32(1.0 / n_cams)))
+            too_near.append(((uvd[..., 2] < NEAR_DISTANCE)
+                             & in_image).any(dim=0))
+        count = torch.cat(count)
+        valid = (count > 0) & ~torch.cat(too_near)
+        prior = torch.clamp(state.density_grid[c], min=0.0)
+        counts.append(count)
+        grids.append(torch.where(valid, prior, -1.0))
+    return state._replace(density_grid=torch.stack(grids),
+                          count_grid=torch.stack(counts))
+
+
+@torch.no_grad()
+def update_density_grid_core(params, state: GridState, cfg: NGPConfig,
+                             density_threshold: float, idx, jitter,
+                             seed=None, decay: float = 0.95,
+                             erode: bool = False) -> GridState:
+    """EMA density-grid maintenance for given draws.
+    reference: models/networks.py:252-281.
+
+    idx: None in warmup (every cell, in order), else (C, m) sampled cell
+    indices per cascade; jitter: (C*m, 3) uniforms in [0, 1) for the
+    in-cell positions; seed: None or the uint32 corner seed of the density
+    probes. Duplicate cells are benign: their densities meet in a
+    scatter-max (unlike the reference's last-write-wins)."""
+    G, C = cfg.grid_size, cfg.cascades
+    G3 = G ** 3
+    dev = state.density_grid.device
+    warmup = idx is None
+    if warmup:
+        idx = torch.arange(G3, device=dev).expand(C, G3)
+    mips = torch.arange(C, device=dev)[:, None].expand(idx.shape)
+    coords = _cell_coords(idx.reshape(-1), G)
+    xyz = _cells_to_world(coords, mips.reshape(-1), cfg, jitter=jitter)
+    sig = _chunked_density(params, cfg, xyz, seed=seed)
+    if warmup:
+        tmp = sig.reshape(C, G3)    # every cell exactly once
+    else:
+        # sigma >= 0 (trunc_exp), so fill 0 is the zero-init scatter-max
+        rows = mips.reshape(-1) * G3 + idx.reshape(-1)
+        tmp = dense_segment_max(rows, sig.float(), C * G3,
+                                fill=0.0).reshape(C, G3)
+    if erode:
+        # decay harder where few cameras see the cell (reference :270-272)
+        decay_g = torch.clamp(
+            decay ** (1.0 / torch.clamp(state.count_grid, min=1e-6)),
+            0.1, 0.95)
+    else:
+        decay_g = decay
+    dg = state.density_grid
+    grid = torch.where(dg < 0, dg, torch.maximum(dg * decay_g, tmp))
+    pos = grid > 0
+    mean_density = torch.sum(torch.where(pos, grid, 0.0)) \
+        / torch.clamp(pos.sum(), min=1)
+    thr = torch.clamp(mean_density, max=density_threshold)
+    return GridState(density_grid=grid, count_grid=state.count_grid,
+                     occ_flat=(grid > thr).to(torch.uint8).reshape(-1),
+                     bitfield=packbits(grid.reshape(-1), thr))
+
+
+def occupied_cells(density_grid, density_threshold: float, u):
+    """Inverse-CDF draw of occupied cells: u (C, M) uniforms in [0, 1) ->
+    (C, M) cell indices of cells with density > threshold (uniform over
+    them; any cell where none is occupied). No (M, G^3) categorical."""
+    from ..ops.marching import _lower_bound_rows
+    C, G3 = density_grid.shape
+    cdf = torch.cumsum((density_grid > density_threshold).to(torch.float32),
+                       dim=-1)
+    q = u * torch.clamp(cdf[:, -1:], min=1e-9)
+    rows = torch.arange(C, device=u.device)[:, None].expand(q.shape)
+    occ_idx = _lower_bound_rows(cdf.reshape(-1), rows.reshape(-1),
+                                q.reshape(-1), G3).reshape(q.shape)
+    return torch.clamp(occ_idx, max=G3 - 1)
+
+
+def update_density_grid(params, state: GridState, cfg: NGPConfig,
+                        density_threshold: float, warmup: bool,
+                        generator: torch.Generator, decay: float = 0.95,
+                        erode: bool = False) -> GridState:
+    """update_density_grid_core with draws from `generator` (on the grid's
+    device): warmup evaluates every cell; otherwise G^3/4 uniform cells plus
+    G^3/4 cells drawn from the occupied set, per cascade. With
+    cfg.stoch_corners the density probes use stochastic corners."""
+    G, C = cfg.grid_size, cfg.cascades
+    G3 = G ** 3
+    dev = state.density_grid.device
+    seed = None
+    if cfg.stoch_corners:
+        seed = int(torch.randint(0, 1 << 32, (), generator=generator,
+                                 device=dev))
+    idx = None
+    if not warmup:
+        M = G3 // 4
+        uniform_idx = torch.randint(0, G3, (C, M), generator=generator,
+                                    device=dev)
+        u = torch.rand((C, M), generator=generator, device=dev)
+        idx = torch.cat([uniform_idx, occupied_cells(
+            state.density_grid, density_threshold, u)], dim=1)
+    m = G3 if warmup else idx.shape[1]
+    jitter = torch.rand((C * m, 3), generator=generator, device=dev)
+    return update_density_grid_core(params, state, cfg, density_threshold,
+                                    idx, jitter, seed=seed, decay=decay,
+                                    erode=erode)

@@ -10,9 +10,11 @@ Output activations (trunc_exp / sigmoid / HDR heads) stay outside.
 
 `fused_field_head` launches the kernel for CUDA tensors and uses the plain
 version `_head_torch` only for CPU tensors; on a CUDA tensor it launches or
-raises. Forward only: the render path runs it under torch.no_grad(), and
-the gradient comes with the training path. The kernel is built at first
-use (build.py), never on import.
+raises. It is differentiable: the backward recomputes the forward through
+`_head_torch` and takes its autograd gradient, as the JAX custom VJP
+recomputes through `_head_xla` (arnerf_tpu/ops/fused_head.py:128-133); the
+JAX package has no backward kernel, so neither has the port yet. The
+kernel is built at first use (build.py), never on import.
 """
 
 import ctypes
@@ -110,17 +112,47 @@ def _head_cuda(feats, sh, weights, dtype):
     return h, rgb
 
 
-def fused_field_head(feats, sh, weights, dtype=torch.bfloat16):
-    """feats (N,32), sh (N,16), weights (W0,W1,V0,V1,V2) ->
-    (h (N,16) raw sigma-net output, rgb (N,3) raw rgb-net output), float32.
-
-    CUDA tensors go to the kernel (which takes exactly the full-width
-    shapes above); CPU tensors go to the plain version."""
+def _head_forward(feats, sh, weights, dtype):
     if feats.device.type == "cpu":
         return _head_torch(feats, sh, weights, dtype)
     if feats.device.type != "cuda":
         raise ValueError(f"fused_field_head: unsupported device {feats.device}")
     return _head_cuda(feats, sh, weights, dtype)
+
+
+class _FusedHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, sh, dtype, *weights):
+        ctx.dtype = dtype
+        ctx.save_for_backward(feats, sh, *weights)
+        return _head_forward(feats, sh, weights, dtype)
+
+    @staticmethod
+    def backward(ctx, g_h, g_rgb):
+        feats, sh, *weights = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip([feats, sh, *weights],
+                      ctx.needs_input_grad[:2] + ctx.needs_input_grad[3:])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            h, rgb = _head_torch(inputs[0], inputs[1], inputs[2:], ctx.dtype)
+            grads = iter(torch.autograd.grad((h, rgb), wanted,
+                                             (g_h, g_rgb)))
+        out = [next(grads) if t.requires_grad else None for t in inputs]
+        return out[0], out[1], None, *out[2:]
+
+
+def fused_field_head(feats, sh, weights, dtype=torch.bfloat16):
+    """feats (N,32), sh (N,16), weights (W0,W1,V0,V1,V2) ->
+    (h (N,16) raw sigma-net output, rgb (N,3) raw rgb-net output), float32.
+
+    CUDA tensors go to the kernel (which takes exactly the full-width
+    shapes above); CPU tensors go to the plain version. Differentiable in
+    feats, sh and the weights (plain recompute in the backward)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (feats, sh, *weights)):
+        return _FusedHead.apply(feats, sh, dtype, *weights)
+    return _head_forward(feats, sh, weights, dtype)
 
 
 def head_weights_from_params(params):

@@ -1,5 +1,6 @@
 """CLI flags: the JAX package's get_opts (arnerf_tpu/opt.py; reference
-opt.py:3-112), same names, defaults and choices, plus --device."""
+opt.py:3-112), same names, defaults and choices, plus --device and the
+port's size flags."""
 
 import argparse
 
@@ -90,6 +91,13 @@ def get_opts(args=None):
     parser.add_argument('--device', type=str, default='cuda',
                         help="'cuda' (default) or 'cpu'; cuda without a "
                              "usable card is an error")
+    # the port's own size flags (defaults: the JAX package's full-width
+    # model and 1000-step epochs), for small CPU runs and tests; train and
+    # eval must be given the same model sizes
+    parser.add_argument('--steps_per_epoch', type=int, default=1000)
+    parser.add_argument('--grid_size', type=int, default=128)
+    parser.add_argument('--n_levels', type=int, default=16)
+    parser.add_argument('--log2_hashmap_size', type=int, default=19)
 
     return parser.parse_args(args)
 
@@ -99,3 +107,19 @@ def resolve_compute_dtype(compute_dtype: str, device) -> str:
     if compute_dtype == 'auto':
         return 'bfloat16' if device.type == 'cuda' else 'float32'
     return compute_dtype
+
+
+def model_config(hparams, device, **kw):
+    """The NGPConfig the flags describe on `device` (train.py:59-79):
+    bf16 on the card unless --compute_dtype says otherwise, the fused head
+    on the card, the size flags."""
+    from .models import NGPConfig
+    rgb_act = 'None' if (hparams.use_exposure or hparams.use_EXR) \
+        else 'Sigmoid'
+    return NGPConfig(scale=hparams.scale, rgb_act=rgb_act,
+                     use_raw_hdr=hparams.use_EXR,
+                     compute_dtype=resolve_compute_dtype(
+                         hparams.compute_dtype, device),
+                     fused_head=device.type == 'cuda',
+                     grid_size=hparams.grid_size, n_levels=hparams.n_levels,
+                     log2_hashmap_size=hparams.log2_hashmap_size, **kw)

@@ -14,17 +14,22 @@ profile of a render attributes device time to layers. With no profiler
 active a span costs about a microsecond; an 800x800 view opens a few
 dozen.
 
-The training render path (render_train) comes with the training slice.
+`render_train` is the differentiable training render (marching, field,
+compositing, background blend) on explicit noise, corner seed and
+background; `draw_train_inputs` draws those from generators. The JAX
+package's hoisted block march (`march_results`) is not ported: it is off by
+default there.
 """
 
 import torch
 from torch.profiler import record_function
 
-from .models.ngp import NGPConfig, ngp_forward_chunked
-from .ops.composite import composite_test_step
+from .models.ngp import NGPConfig, ngp_forward, ngp_forward_chunked
+from .ops.composite import composite_test_step, composite_train
 from .ops.intersection import ray_aabb_intersect_single
 from .ops.marching import (build_coarse_occupancy, coarse_dilation_radius,
-                           march_rays_test)
+                           march_rays_test, march_rays_train,
+                           march_rays_train_pooled)
 from .ops.stepping import SQRT3, num_lattice_steps
 
 MAX_SAMPLES = 1024   # reference: models/rendering.py:9
@@ -44,6 +49,103 @@ def scene_hits(rays_o, rays_d, cfg: NGPConfig, mesh_depth_map=None):
         clamped = torch.maximum(torch.minimum(t2, mesh_depth_map), t1)
         t2 = torch.where(valid_depth, clamped, t2)
     return torch.stack([t1, t2], dim=-1)
+
+
+def default_candidates(cfg: NGPConfig, exp_step_factor: float,
+                       max_samples: int = MAX_SAMPLES) -> int:
+    """Lattice length covering the scene diagonal from any start."""
+    diag = 2 * SQRT3 * cfg.scale
+    return num_lattice_steps(NEAR_DISTANCE, NEAR_DISTANCE + diag,
+                             exp_step_factor, max_samples, cfg.grid_size,
+                             cfg.scale)
+
+
+def render_train(params, grid_state, rays_o, rays_d, cfg: NGPConfig, *,
+                 noise, seed=None, rgb_bg=None, exp_step_factor: float = 0.0,
+                 T_threshold: float = 1e-4, m_cap: int = 256 * 1024,
+                 s_cap: int = MAX_SAMPLES, max_samples: int = MAX_SAMPLES,
+                 seg_cap: int = 64, exposure=None, mesh_depth_map=None,
+                 seg_pool: int = 0):
+    """Differentiable training render (arnerf_tpu/rendering.py:52-195).
+    Returns the reference's results dict (rendering.py:255-298): rgb,
+    opacity, depth, ws, deltas, ts, the segment layout and the sample
+    counters.
+
+    noise: (N,) U[0, 1) first-sample jitter; seed: None for exact hash
+    gathers, a uint32 int for stochastic corners; rgb_bg: (3,) background,
+    default white when exp_step_factor == 0 (bounded scenes) else black.
+    seg_cap == 0 (warmup) marches single-level; seg_pool > 0 routes
+    two-level marching through a shared pool of that many segment slots
+    (single-cascade scenes)."""
+    hits = scene_hits(rays_o, rays_d, cfg, mesh_depth_map)
+    occ_coarse = None
+    if seg_cap > 0:
+        occ_coarse = _coarse_occupancy(grid_state, cfg, exp_step_factor,
+                                       max_samples, None)
+    kw = dict(scale=cfg.scale, cascades=cfg.cascades,
+              exp_step_factor=exp_step_factor, grid_size=cfg.grid_size,
+              max_samples=max_samples,
+              n_candidates=default_candidates(cfg, exp_step_factor,
+                                              max_samples),
+              m_cap=m_cap, s_cap=s_cap, occ_coarse=occ_coarse)
+    with record_function("march"):
+        if seg_pool > 0 and occ_coarse is not None:
+            mr = march_rays_train_pooled(rays_o, rays_d, hits,
+                                         grid_state.occ_flat, noise,
+                                         seg_pool_cap=seg_pool, **kw)
+        else:
+            mr = march_rays_train(rays_o, rays_d, hits, grid_state.occ_flat,
+                                  noise, seg_cap=max(seg_cap, 1), **kw)
+    return _render_train_from_march(params, mr, cfg, seed=seed,
+                                    rgb_bg=rgb_bg,
+                                    exp_step_factor=exp_step_factor,
+                                    T_threshold=T_threshold,
+                                    exposure=exposure)
+
+
+def _render_train_from_march(params, mr, cfg: NGPConfig, *, seed, rgb_bg,
+                             exp_step_factor: float, T_threshold: float,
+                             exposure=None):
+    """Field eval + composite + background blend over MarchResults."""
+    sample_exposure = None if exposure is None else exposure[mr.ray_idx]
+    with record_function("field"):
+        sigmas, rgbs = ngp_forward(params, mr.xyzs, mr.dirs + 1e-12, cfg,
+                                   exposure=sample_exposure, seed=seed)
+    with record_function("composite"):
+        comp = composite_train(sigmas, rgbs, mr.deltas, mr.ts, mr.ray_idx,
+                               mr.valid, mr.ray_start, mr.counts,
+                               T_threshold)
+    if rgb_bg is None:
+        rgb_bg = torch.full((3,), 1.0 if exp_step_factor == 0.0 else 0.0,
+                            device=comp.rgb.device)
+    # background blend (reference rendering.py:287-296)
+    rgb = comp.rgb + rgb_bg[None, :] * (1.0 - comp.opacity[:, None])
+    zero = torch.zeros((), dtype=torch.int64, device=rgb.device)
+    return {
+        "rgb": rgb, "opacity": comp.opacity, "depth": comp.depth,
+        "ws": comp.ws, "deltas": mr.deltas, "ts": mr.ts,
+        "ray_idx": mr.ray_idx, "valid": mr.valid,
+        "ray_start": mr.ray_start, "counts": mr.counts,
+        "rm_samples": mr.rm_samples, "vr_samples": comp.vr_samples,
+        "max_nseg": mr.max_nseg,
+        "total_nseg": zero if mr.total_nseg is None else mr.total_nseg,
+    }
+
+
+def draw_train_inputs(n_rays: int, device, *, generator: torch.Generator,
+                      host_generator: torch.Generator, stoch: bool,
+                      random_bg: bool):
+    """render_train's draws: (noise, seed, rgb_bg). The noise and the
+    random background come from `generator` on `device`, the corner seed
+    (stoch) from the CPU generator `host_generator`, so that no draw waits
+    for the card. (jax.random's three-way key split cannot be reproduced in
+    torch; the parity tests pass JAX's draws to render_train instead.)"""
+    noise = torch.rand(n_rays, generator=generator, device=device)
+    seed = int(torch.randint(0, 1 << 32, (), generator=host_generator)) \
+        if stoch else None
+    rgb_bg = torch.rand(3, generator=generator, device=device) \
+        if random_bg else None
+    return noise, seed, rgb_bg
 
 
 def _coarse_occupancy(grid_state, cfg: NGPConfig, exp_step_factor: float,

@@ -4,14 +4,23 @@ arnerf_tpu/training/ckpt.py).
 Keys are path-flattened: `params/hash_table`, `params/sigma_mlp/0`,
 `params/rgb_mlp/2`, `params/tonemappers/1/0`, `grid/occ_flat`, ... A
 checkpoint written by the JAX trainer loads here through `params_from_jax`,
-and one written here loads in the JAX package. Optimizer state comes with
-the training path.
+and one written here loads in the JAX package.
+
+Optimizer state is stored as its leaves, `opt/<i>`, in the order of optax's
+Adam state (training/ckpt.py:37-44 of the JAX package): the step count,
+the first moments and the second moments in the parameters' sorted-key
+order (`tree_leaves`), then the schedule's count. Each package resumes
+from the other's checkpoint.
 """
 
 import os
 
 import numpy as np
 import torch
+
+
+def _numpy(t):
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
 
 
 def _flatten(tree, prefix=""):
@@ -23,8 +32,7 @@ def _flatten(tree, prefix=""):
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}{i}/"))
     elif tree is not None:
-        out[prefix[:-1]] = (tree.detach().cpu().numpy()
-                            if torch.is_tensor(tree) else np.asarray(tree))
+        out[prefix[:-1]] = _numpy(tree)
     return out
 
 
@@ -56,12 +64,27 @@ def params_from_jax(flat: dict, device="cpu") -> dict:
     return _listify(tree)
 
 
-def save_ckpt(path, *, params, grid_state=None, step=0):
+def tree_leaves(tree) -> list:
+    """Leaves in jax.tree.leaves order: dict keys sorted, sequences in
+    order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def save_ckpt(path, *, params, grid_state=None, opt_state=None, step=0):
+    """opt_state: the optimizer's leaves (see the module note), or None."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     blobs = {"step": np.asarray(step)}
     blobs.update(_flatten(params, "params/"))
     if grid_state is not None:
         blobs.update(_flatten(grid_state._asdict(), "grid/"))
+    if opt_state is not None:
+        blobs["opt_n_leaves"] = np.asarray(len(opt_state))
+        for i, leaf in enumerate(opt_state):
+            blobs[f"opt/{i}"] = _numpy(leaf)
     # atomic write: a kill mid-save must never corrupt an existing ckpt
     tmp = f"{path}.tmp.npz"
     np.savez(tmp, **blobs)
@@ -101,3 +124,30 @@ def _merge(template, loaded):
         raise ValueError(f"checkpoint tensor of shape {tuple(loaded.shape)} "
                          f"does not fit the model's {tuple(template.shape)}")
     return loaded
+
+
+def load_opt_state(path, n_leaves: int, device="cpu"):
+    """The optimizer leaves of a checkpoint as tensors on `device`, or None
+    when it holds none (slim checkpoints)."""
+    with np.load(path, allow_pickle=False) as f:
+        if "opt/0" not in f:
+            return None
+        n = int(f["opt_n_leaves"]) if "opt_n_leaves" in f else n_leaves
+        if n != n_leaves:
+            raise ValueError(f"checkpoint optimizer state has {n} leaves but "
+                             f"the optimizer has {n_leaves}")
+        return [torch.from_numpy(np.array(f[f"opt/{i}"])).to(device)
+                for i in range(n)]
+
+
+def slim_ckpt(path_in, path_out):
+    """Strip a checkpoint for distribution: model weights plus the
+    occupancy decision (the reference keeps the density bitfield,
+    utils.py:29-39)."""
+    with np.load(path_in, allow_pickle=False) as f:
+        blobs = dict(f)
+    keep = {k: v for k, v in blobs.items()
+            if k.startswith("params/") or k in ("grid/occ_flat",
+                                                 "grid/bitfield")}
+    keep["step"] = blobs.get("step", np.asarray(0))
+    np.savez(path_out, **keep)

@@ -10,8 +10,9 @@ products are formed in int64 and masked to 32 bits.
 `hashgrid_encode(table, x, cfg, seed=None)` is differentiable:
   * seed=None, the exact 8-corner trilerp: the table gradient is one
     segment sum of the N*L*8 corner updates w*g into the table's global
-    rows (ops/segments.py, exact f32, the hand-written CUDA kernel on the
-    card) and the position gradient is the analytic trilinear derivative
+    rows, passed as (N, L*8) so that the kernel merges a column's runs of
+    equal rows (ops/segments.py, exact f32, the hand-written CUDA kernel on
+    the card) and the position gradient is the analytic trilinear derivative
     (zero where x was clamped);
   * seed=<uint32>, the stochastic single-corner estimator: each axis picks
     its +1 corner with probability frac_d from the counter hash of
@@ -185,10 +186,11 @@ class _Encode(torch.autograd.Function):
         d_table = d_x = None
         if ctx.needs_input_grad[0]:
             # sum over n of w[n,l,c] * g[n,l,:] into table row flat[n,l,c]:
-            # one segment sum of the N*L*8 exact f32 updates (pack=False)
+            # one segment sum of the N*L*8 exact f32 updates (pack=False),
+            # as N samples of L*8 updates each
             w = cw[0] * cw[1] * cw[2]
             upd = w[..., None].float() * g[:, :, None, :]          # (N, L, 8, F)
-            d_table = segment_sum(flat.reshape(-1).to(torch.int32),
+            d_table = segment_sum(flat.reshape(n, L * 8).to(torch.int32),
                                   upd.reshape(-1, F), cfg.total_entries,
                                   pack=False).to(table.dtype)
         if ctx.needs_input_grad[1]:
@@ -253,7 +255,7 @@ class _EncodeStoch(torch.autograd.Function):
         n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
         d_table = None
         if ctx.needs_input_grad[0]:
-            flat = _stoch_indices(x, ctx.seed, cfg).reshape(-1)
+            flat = _stoch_indices(x, ctx.seed, cfg)                  # (N, L)
             # on the card the upstream cotangents are rounded to bf16
             # (pack), the quantisation of the JAX package's TPU default; on
             # the CPU the sum is exact, as the JAX package's is there

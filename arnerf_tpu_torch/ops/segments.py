@@ -3,7 +3,10 @@ arnerf_tpu/ops/segments.py).
 
 `segment_sum(idx, vals, num_rows, pack)` computes
     out[idx[m], f] += v(vals[m, f]),   v = bf16 rounding if pack else identity
-in float32, skipping rows with idx < 0 or idx >= num_rows. For CUDA tensors
+in float32, skipping rows with idx < 0 or idx >= num_rows. idx is (M,) or
+(N, G): N samples of G updates each, sample-major, with vals (N*G, F). The
+grouped shape is the hash-grid backward's layout (G = levels x corners); it
+lets the kernel merge runs of equal rows down each column. For CUDA tensors
 it launches the hand-written sm_90a kernel csrc/segment_sum.cu, the
 counterpart of the Pallas `_hist_kernel` (a one-hot MXU matmul on the TPU)
 and of the reference CUDA extension's atomicAdd accumulation. For CPU tensors
@@ -45,7 +48,9 @@ def reset_launches():
 
 
 def _segment_sum_torch(idx, vals, num_rows: int, pack: bool):
-    """Plain version: vals (M, F) float32 -> (num_rows, F) float32."""
+    """Plain version: idx (M,) or (N, G), vals (M, F) float32 ->
+    (num_rows, F) float32."""
+    idx = idx.reshape(-1)
     ok = (idx >= 0) & (idx < num_rows)
     v = vals.float()
     if pack:
@@ -61,8 +66,8 @@ def _library():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.arnerf_segment_sum_error_string.argtypes = [ctypes.c_int]
         lib.arnerf_segment_sum_error_string.restype = ctypes.c_char_p
@@ -73,15 +78,17 @@ def _segment_sum_cuda(idx, vals, num_rows: int, pack: bool):
     dev = vals.device
     if idx.device != dev:
         raise ValueError(f"segment_sum: idx is on {idx.device}, vals on {dev}")
-    if idx.dtype != torch.int32 or idx.ndim != 1 or not idx.is_contiguous():
-        raise ValueError("segment_sum: idx must be a contiguous 1-D int32 "
-                         f"tensor, got {idx.dtype} {tuple(idx.shape)}")
+    if idx.dtype != torch.int32 or idx.ndim not in (1, 2) \
+            or not idx.is_contiguous():
+        raise ValueError("segment_sum: idx must be a contiguous 1-D or 2-D "
+                         f"int32 tensor, got {idx.dtype} {tuple(idx.shape)}")
     if vals.dtype != torch.float32 or vals.ndim != 2:
         raise ValueError("segment_sum: vals must be a 2-D float32 tensor, got "
                          f"{vals.dtype} {tuple(vals.shape)}")
     m, f = vals.shape
-    if idx.shape[0] != m:
-        raise ValueError(f"segment_sum: {idx.shape[0]} rows of idx for {m} "
+    n, groups = idx.shape if idx.ndim == 2 else (idx.shape[0], 1)
+    if idx.numel() != m:
+        raise ValueError(f"segment_sum: {idx.numel()} rows of idx for {m} "
                          f"rows of vals")
     if not 1 <= f <= MAX_COLS:
         raise ValueError(f"segment_sum: {f} columns, the kernel takes 1 to "
@@ -96,7 +103,7 @@ def _segment_sum_cuda(idx, vals, num_rows: int, pack: bool):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.arnerf_segment_sum(
             idx.data_ptr(), vals.data_ptr(), vals.stride(0), vals.stride(1),
-            m, f, num_rows, int(pack), out.data_ptr(), stream)
+            n, groups, f, num_rows, int(pack), out.data_ptr(), stream)
     if err:
         raise RuntimeError("segment_sum launch failed: "
                            + lib.arnerf_segment_sum_error_string(err).decode())
@@ -107,8 +114,10 @@ def _segment_sum_cuda(idx, vals, num_rows: int, pack: bool):
 def segment_sum(idx, vals, num_rows: int, pack: bool = False):
     """out[t] = sum of v(vals[m]) over idx[m] == t, (num_rows, F) float32.
 
-    idx (M,) integer rows (int32 on CUDA); vals (M, F) float32, any strides.
-    CUDA tensors go to the kernel, CPU tensors to the plain version."""
+    idx (M,) integer rows, or (N, G) for N samples of G updates each,
+    sample-major (int32 and contiguous on CUDA); vals (N*G, F) float32, any
+    strides. CUDA tensors go to the kernel, CPU tensors to the plain
+    version."""
     if vals.device.type == "cpu":
         return _segment_sum_torch(idx, vals, num_rows, pack)
     if vals.device.type != "cuda":

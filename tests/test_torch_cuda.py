@@ -59,6 +59,32 @@ def test_kernel_matches_plain_bf16(dev, feats_dtype):
     torch.testing.assert_close(rgb, rgb_p, rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("feats_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4099, (1 << 18) + 5])
+def test_tensor_core_head_matches_plain(dev, n, feats_dtype):
+    """The bf16 mode runs on the tensor cores in 16-row tiles; n covers one
+    partial tile, a whole one, one row past it and ragged tails. Every
+    element is held to rtol/atol 2e-2; on top, h and rgb are held to a
+    relative Frobenius error of 1e-3. Products of bf16 values are exact in
+    f32 on both sides, but the tensor cores sum in another order than
+    cuBLAS, so a hidden activation near a bf16 rounding boundary may round
+    the other way and move a few outputs by a bf16 ulp of its weight; the
+    norm bound shows that such flips stay rare."""
+    w = _weights(dev, 9)
+    feats, sh = _inputs(n, dev, 10)
+    feats = feats.to(feats_dtype)
+    t_fused.reset_launches()
+    h, rgb = t_fused.fused_field_head(feats, sh, w, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert t_fused.launches == 1
+    h_p, rgb_p = t_fused._head_torch(feats, sh, w, torch.bfloat16)
+    for got, want in ((h, h_p), (rgb, rgb_p)):
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+        rel = float(torch.linalg.norm(got - want)
+                    / torch.linalg.norm(want).clamp(min=1e-30))
+        assert rel <= 1e-3, f"relative Frobenius error {rel}"
+
+
 def test_wrapper_refuses_bad_inputs(dev):
     w = _weights(dev)
     feats, sh = _inputs(64, dev)
@@ -132,6 +158,44 @@ def test_segment_sum_kernel_matches_plain(dev, pack, f, collide):
     torch.cuda.synchronize()
     assert t_seg.launches == {"pack": int(pack), "exact": int(not pack)}
     _assert_sums_close(out, idx, vals, rows, pack)
+
+
+def _grouped_updates(n, groups, f, rows, dev, seed, runs):
+    """(n, groups) rows, sample-major, with -1 rows and rows past the
+    table. runs: each column walks a sorted ray-like sequence, so equal
+    rows come in runs of up to ~40 samples (the coarse levels along a
+    ray); else random rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if runs:
+        steps = torch.rand((n, groups), generator=g, device=dev) < 0.05
+        idx = (torch.cumsum(steps.long(), 0)
+               + torch.randint(0, rows, (1, groups), generator=g,
+                               device=dev)) % rows
+    else:
+        idx = torch.randint(0, rows, (n, groups), generator=g, device=dev)
+    drop = torch.rand((n, groups), generator=g, device=dev) < 0.03
+    idx = torch.where(drop, -1, idx)
+    idx[:2, :] = rows + 7                           # past the table: skipped
+    vals = torch.randn((n * groups, f), generator=g, device=dev)
+    return idx.to(torch.int32).contiguous(), vals
+
+
+@pytest.mark.parametrize("runs", [True, False])
+@pytest.mark.parametrize("f", [1, 2, 3, 4, 16])
+@pytest.mark.parametrize("groups", [1, 16, 128])
+def test_segment_sum_grouped_matches_plain(dev, groups, f, runs):
+    """2-D idx (N, G): the kernel merges runs of equal rows down each column
+    before its atomics. Both modes, sorted runs and random rows, -1 rows
+    and rows past the table; tolerance in _assert_sums_close."""
+    rows = 3000
+    idx, vals = _grouped_updates(20_011, groups, f, rows, dev,
+                                 100 * groups + f, runs)
+    for pack in (False, True):
+        t_seg.reset_launches()
+        out = t_seg.segment_sum(idx, vals, rows, pack=pack)
+        torch.cuda.synchronize()
+        assert t_seg.launches == {"pack": int(pack), "exact": int(not pack)}
+        _assert_sums_close(out, idx.reshape(-1), vals, rows, pack)
 
 
 def test_dense_segment_sum_batched_on_the_card(dev):

@@ -163,6 +163,35 @@ def test_dense_segment_sum_batched_matches_jax(pack):
     np.testing.assert_allclose(t.numpy(), j, atol=2e-4, rtol=0)
 
 
+@pytest.mark.parametrize("pack", [False, True])
+@pytest.mark.parametrize("groups", [1, 16, 128])
+def test_segment_sum_grouped_idx(groups, pack):
+    """idx (N, G), N samples of G updates each (the hash-grid backward's
+    layout), is the same function as the 1-D call on the flattened rows,
+    bit for bit, and matches the JAX package: _hist_kernel in interpret
+    mode with pack (-1 rows dropped), the exact scatter without (whose
+    rows must lie in the table)."""
+    rng = np.random.default_rng(20 + groups)
+    N, rows = 40, 500
+    idx = rng.integers(0, rows, (N, groups)).astype(np.int32)
+    if pack:
+        idx[rng.random((N, groups)) < 0.1] = -1
+    vals = rng.normal(size=(N * groups, 2)).astype(np.float32)
+    t = t_seg.segment_sum(_t(idx), _t(vals), rows, pack=pack)
+    flat = t_seg.segment_sum(_t(idx.reshape(-1)), _t(vals), rows, pack=pack)
+    assert torch.equal(t, flat)
+    if pack:
+        j = j_seg.mxu_segment_sum(
+            jnp.asarray(idx.reshape(-1)),
+            (jnp.asarray(vals[:, 0]), jnp.asarray(vals[:, 1])), rows,
+            interpret=True)
+    else:
+        j = j_seg.dense_segment_sum(jnp.asarray(idx.reshape(-1)),
+                                    jnp.asarray(vals), rows, method="scatter")
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5,
+                               rtol=1e-6)
+
+
 def test_dense_segment_max_matches():
     rng = np.random.default_rng(4)
     idx = rng.integers(0, 200, 3000).astype(np.int32)
@@ -239,6 +268,34 @@ def test_stoch_encode_forward_and_gradient_match():
     out.backward(_t(g))
     _rel_close(tt.grad, j_dt, 1e-5)
     assert float(tx.grad.abs().max()) == 0.0   # piecewise constant in x
+
+
+@pytest.mark.parametrize("stoch", [False, True])
+def test_encode_backwards_pass_grouped_updates(stoch, monkeypatch):
+    """Both hash-grid backwards hand segment_sum their updates as (N, G)
+    samples of G = L*8 corner updates (exact) or L level updates
+    (stochastic), sample-major, and the table gradient still matches the
+    JAX package's."""
+    jc, tc = _hash_cfgs()
+    table, x, g = _hash_inputs(jc, seed=6)
+    seed = 24680 if stoch else None
+    shapes = []
+
+    def spy(idx, vals, num_rows, pack=False):
+        shapes.append((tuple(idx.shape), tuple(vals.shape)))
+        return t_seg.segment_sum(idx, vals, num_rows, pack)
+    monkeypatch.setattr(t_hg, "segment_sum", spy)
+    jseed = None if seed is None else np.uint32(seed)
+    _, vjp = jax.vjp(lambda a: j_hg.hashgrid_encode(a, jnp.asarray(x), jc,
+                                                    seed=jseed),
+                     jnp.asarray(table))
+    (j_dt,) = vjp(jnp.asarray(g))
+    tt = _t(table).requires_grad_()
+    t_hg.hashgrid_encode(tt, _t(x), tc, seed=seed).backward(_t(g))
+    n, L = x.shape[0], tc.n_levels
+    G = L if stoch else L * 8
+    assert shapes == [((n, G), (n * G, tc.n_features))]
+    _rel_close(tt.grad, j_dt, 1e-5)
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,904 @@
+"""AR object insertion: NGPInsertor (offline prep, per-frame relight and
+composite) and NGPServer (the TCP protocol of the external OpenGL viewer).
+Port of arnerf_tpu/insert/main.py, network path only; reference
+insert/main.py.
+
+  python -m arnerf_tpu_torch.insert.main --dataset_name synthetic \\
+      --downsample 6.25 --ckpt_path ckpt.npz --exp_name scene [--device cpu]
+
+Runs on the card by default (bf16 field, the fused field-head kernel on
+every NeRF render: pose renders, the surface cache, probes and dirty-rect
+renders); --device cpu runs the plain versions in float32. Every render is
+`render_test` (non-fast) with T_threshold 1e-2 and 96 samples in rounds of
+32, as in the JAX package. Outputs go under ./insert/generate/<exp_name>/.
+
+A frame's stages run under `torch.profiler.record_function` spans:
+"probe" and "sg_fit" (action 1), "shade", "rect" and "shadow" (action 6);
+the renders inside them open the render layers' spans.
+
+Not ported, refused with an error: the baked-field programs
+(ARNERF_INSERT_BAKED=1; they need rendering_baked.py), --use_EXR and
+--use_exposure (they need the HDR tonemapper heads), the amortised SG
+fitter (EnvTrainer, generate_envmaps, load_or_train_envmaps).
+"""
+
+import glob
+import os
+import shutil
+import struct
+import time
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..datasets.ray_utils import get_ray_directions, get_rays
+from ..image_io import write_exr, write_png
+from ..rendering import render_surface_normal, render_test
+from .envfit import EnvOptim, sg2envmap, trans_raw_sg
+from .global_light import GlobalLightEstimator
+from .insert_models import (get_embedder, mlp_skip_apply, mlp_skip_init,
+                            train_global_env_prec)
+from .render_utils import _gaussian_blur_3x3, cubemap2env_map, \
+    sg_render_core, sh_render_core
+from .server import Server
+from .sg_shadow import SGShadow
+from .sh_math import (get_cubemap_rays, get_sh_coeff, get_sphere_rays,
+                      normalize, rotate_sh_by_recalc, sh2envmap, write2ply)
+from .shadow_fields import ComplexSF, soft_shadow_map, transform_sf_txt
+from .tonemapping import tonemapping_simple
+
+SH_ORDER = 3           # SH9 (reference main.py:36)
+USE_STD_SF = True
+BRDF_PATH = os.path.join(os.path.dirname(__file__), "data",
+                         f"model_brdf{SH_ORDER}.npz")
+
+
+def refuse_unported(hparams):
+    """Raise for the options whose modules the port does not have yet."""
+    if os.environ.get("ARNERF_INSERT_BAKED", "") == "1":
+        raise NotImplementedError(
+            "ARNERF_INSERT_BAKED=1: the baked insert programs need "
+            "rendering_baked.py, which is not ported to arnerf_tpu_torch yet")
+    for flag in ("use_EXR", "use_exposure"):
+        if getattr(hparams, flag, False):
+            raise NotImplementedError(
+                f"--{flag}: HDR insertion needs the HDR tonemapper heads, "
+                f"which are not ported to arnerf_tpu_torch yet")
+
+
+def _blur_hw1(img, k=9):
+    """Gaussian blur of an (H, W, 1) map by repeated 3x3 passes (the JAX
+    package's approximation of the reference's single (k, k) gaussian)."""
+    for _ in range(max(1, k // 3 + 1)):
+        img = _gaussian_blur_3x3(img)
+    return img
+
+
+def _numpy(t):
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+class NGPInsertor:
+    """reference insert/main.py:49-684. `generator` (on the insertor's
+    device) draws the sphere-probe directions; the JAX package takes a key
+    there, so the parity tests pass both packages the same directions."""
+
+    def __init__(self, hparams, generator=None):
+        from ..datasets import dataset_dict
+        from ..device import resolve_device
+        from ..models import grid_state_init, ngp_init
+        from ..opt import model_config
+        from ..training.ckpt import load_ckpt
+
+        refuse_unported(hparams)
+        if hparams.dataset_name not in dataset_dict:
+            raise NotImplementedError(
+                f"dataset {hparams.dataset_name!r} is not ported to "
+                f"arnerf_tpu_torch yet (have: {sorted(dataset_dict)})")
+        self.hparams = hparams
+        self.device = dev = resolve_device(hparams.device)
+        self.generator = generator if generator is not None else \
+            torch.Generator(device=dev).manual_seed(0)
+        self.cfg = model_config(hparams, dev)
+        self.params = ngp_init(self.cfg, torch.Generator().manual_seed(0), dev)
+        self.grid_state = grid_state_init(self.cfg, dev)
+        if hparams.ckpt_path:
+            self.params, self.grid_state, _ = load_ckpt(
+                hparams.ckpt_path, params_template=self.params,
+                grid_template=self.grid_state, device=dev)
+            # occupancy may come from a slim ckpt without grid -> rebuild
+            if int(self.grid_state.occ_flat.sum()) == 0:
+                occ = (self.grid_state.density_grid > 0.01).to(torch.uint8)
+                self.grid_state = self.grid_state._replace(
+                    occ_flat=occ.reshape(-1))
+
+        self.gen_path = os.path.join("./insert/generate/", hparams.exp_name)
+        self.has_pc = os.path.exists(os.path.join(self.gen_path, "pc.ply"))
+        self.has_sur = os.path.exists(
+            os.path.join(self.gen_path, "surface.npy"))
+        read_meta = not (self.has_sur or os.path.exists(
+            os.path.join(self.gen_path, "mat_sh_000199.npz")))
+        dataset = dataset_dict[hparams.dataset_name](
+            root_dir=hparams.root_dir, downsample=hparams.downsample,
+            read_meta=read_meta, device=dev)
+
+        l_resol = hparams.low_resolution
+        self.K = np.array(dataset.K, np.float32)
+        self.K[:2] = self.K[:2] / l_resol
+        self.W = int(dataset.img_wh[0] / l_resol)
+        self.H = int(dataset.img_wh[1] / l_resol)
+        self.directions = torch.as_tensor(
+            get_ray_directions(self.H, self.W, self.K),
+            device=dev).reshape(self.H, self.W, 3)
+        self.screen_bound = [[0, 0], [self.H, self.W]]
+        self.dataset = dataset
+        self.sh_ray_dirs = None
+        self.cubemap_rgb = None
+        self.global_sh = torch.zeros((1, SH_ORDER ** 2, 3), device=dev)
+        self.last_depth = None
+        self.last_rgb = None
+
+        # neural-BRDF glossy MLP (reference main.py:90-94)
+        self.embed_fn_v, input_ch_v = get_embedder(3)
+        self.model_brdf_params = self._load_or_init_brdf(
+            BRDF_PATH, input_ch_v * 2 + 1, 2 * SH_ORDER ** 2)
+
+        self.sf = None
+        self.sg_shadow = None
+        self.env_opt = EnvOptim(device=dev)
+        os.makedirs(os.path.join(self.gen_path, "results"), exist_ok=True)
+        self.dt = 0.0
+
+    def _load_or_init_brdf(self, path, input_ch, output_ch):
+        params = mlp_skip_init(torch.Generator().manual_seed(42), input_ch,
+                               output_ch, D=2, W=128, device=self.device)
+        if os.path.exists(path):
+            blob = np.load(path)
+            params["layers"] = [
+                {"w": torch.as_tensor(blob[f"w_{i}"], device=self.device),
+                 "b": torch.as_tensor(blob[f"b_{i}"], device=self.device)}
+                for i in range(len(params["layers"]))]
+            print(f"Loaded neural BRDF from {path}")
+        else:
+            print(f"WARNING: no pretrained neural BRDF found ({path}); SH "
+                  f"glossy shading will be uncalibrated.")
+        return params
+
+    def model_brdf(self, x):
+        return mlp_skip_apply(self.model_brdf_params, x)
+
+    def set_sf(self, sf_path):
+        self.sf = ComplexSF(sf_path, SH_ORDER ** 2, device=self.device)
+
+    def set_sg_shadow(self, pca_path):
+        self.sg_shadow = SGShadow(pca_path, 20, 128, 2, envH=74, envW=148,
+                                  device=self.device)
+
+    def _t(self, x, dtype=torch.float32):
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    # -- NeRF rendering ----------------------------------------------------
+
+    def render(self, rays_o, rays_d, **kwargs):
+        """Interactive-quality test render (reference main.py:110-131):
+        T_threshold 1e-2, 96 samples in rounds of 32."""
+        exp_step_factor = 1 / 256 if self.hparams.dataset_name in (
+            "colmap", "nerfpp") else 0.0
+        t = time.time()
+        out = render_test(
+            self.params, self.grid_state, rays_o, rays_d, self.cfg,
+            exp_step_factor=exp_step_factor, T_threshold=1e-2,
+            max_samples=96, samples_per_round=32,
+            sh_bkg=kwargs.get("SH_bkg"), im_bkg=kwargs.get("IM_bkg"),
+            blend_bkg=kwargs.get("blend_bkg", True),
+            mesh_depth_map=kwargs.get("mesh_depth_map"))
+        self.dt = time.time() - t
+        if kwargs.get("return_full_res", False):
+            return out
+        return out["rgb"], out["depth"]
+
+    def render_pose(self, pose, **kwargs):
+        rays_o, rays_d = get_rays(self.directions.reshape(-1, 3),
+                                  self._t(pose))
+        rgb, depth = self.render(rays_o, rays_d, **kwargs)
+        return (_numpy(rgb).reshape(self.H, self.W, 3),
+                _numpy(depth).reshape(self.H, self.W), rays_o, rays_d)
+
+    # -- offline prep ------------------------------------------------------
+
+    def generate_surface(self, save=False):
+        """Per-pose surface cache: rgb, surface points and density-gradient
+        normals (reference main.py:151-193)."""
+        save_path = os.path.join(self.gen_path, "surface.npy")
+        if self.has_sur:
+            info = np.load(save_path, allow_pickle=True).item()
+            self.rgbs, self.spts, self.normals = \
+                info["rgbs"], info["spts"], info["normals"]
+            return
+        rgbs, pts, normals = [], [], []
+        shape = (self.H, self.W, 3)
+        for pose in self.dataset.poses:
+            rays_o, rays_d = get_rays(self.directions.reshape(-1, 3),
+                                      self._t(pose))
+            rgb, depth = self.render(rays_o, rays_d)
+            surface_pts = rays_o + depth[:, None] * rays_d
+            n = render_surface_normal(self.params, surface_pts, self.cfg)
+            rgbs.append(_numpy(rgb).reshape(shape))
+            pts.append(_numpy(surface_pts).reshape(shape))
+            normals.append(_numpy(n).reshape(shape))
+        self.rgbs = np.stack(rgbs, 0)
+        self.spts = np.stack(pts, 0)
+        self.normals = np.stack(normals, 0)
+        self.has_sur = True
+        if save:
+            np.save(save_path, {"rgbs": self.rgbs, "spts": self.spts,
+                                "normals": self.normals})
+
+    def generate_point_cloud(self):
+        """reference main.py:221-249."""
+        if self.has_pc:
+            binfo = np.load(os.path.join(self.gen_path, "btrans.npy"),
+                            allow_pickle=True).item()
+            self.blender_trans = binfo["trans"]
+            self.blender_scale = binfo["scale"]
+            return
+        self.generate_surface(save=True)
+        rgbs = self.rgbs.reshape(-1, 3)
+        pts = self.spts.reshape(-1, 3)
+        idx = np.random.default_rng(0).permutation(pts.shape[0])
+        idx = idx[:self.hparams.max_pc_pts_num]
+        write2ply(rgbs[idx], pts[idx], os.path.join(self.gen_path, "pc.ply"))
+        binfo = {
+            "trans": np.asarray(getattr(self.dataset, "blender_trans",
+                                        np.eye(4)), np.float32),
+            "scale": float(getattr(self.dataset, "blender_scale", 1.0))}
+        self.blender_trans = binfo["trans"]
+        self.blender_scale = binfo["scale"]
+        np.save(os.path.join(self.gen_path, "btrans.npy"), binfo,
+                allow_pickle=True)
+        self.has_pc = True
+
+    def train_global_sh_light(self):
+        """reference main.py:251-302."""
+        self.generate_surface(save=True)
+        gle = GlobalLightEstimator(self.gen_path)
+        if not gle.calc_complete:
+            gle.detect_planar_patch()
+            gle.save_results(self)
+        self.fit_global_sh(gle)
+
+    def fit_global_sh(self, gle):
+        """The global-SH and albedo fit on the estimator's planar points
+        and precomputed probes (reference main.py:285-302)."""
+        gsh = train_global_env_prec(
+            gle.t_pts, gle.t_normal, gle.t_rgbs,
+            getattr(gle, "t_rgb_shs", None), getattr(gle, "t_opc_shs", None),
+            self.gen_path, SH_ORDER ** 2, iters=200, ckpt_save=199,
+            batch=20480 * 16, mat_smooth_range=1e-2, mat_smooth_weight=0.2,
+            lrate=1e-4, lrate_decay=2000,
+            hdr_mapping=self.hparams.train_SH_HDR_mapping,
+            device=self.device)
+        gsh = self._t(gsh)
+        self.global_sh = gsh[None] if gsh.ndim == 2 else gsh
+
+    # -- probes ------------------------------------------------------------
+
+    def _probe_rgb(self, rgb):
+        if self.hparams.gen_probe_HDR_mapping:
+            rgb = torch.pow(rgb / (1 + rgb), 1.0 / 2.2)
+        return rgb
+
+    def generate_probe(self, pt, sh_probe=True, return_envmap=False,
+                       use_sphere_rays_sample=False):
+        """Light probe at a point: render probe rays from the NeRF with the
+        global SH as background; project to SH9 or fit SGs (reference
+        main.py:306-352)."""
+        if self.sh_ray_dirs is None:
+            if use_sphere_rays_sample:
+                self.sh_ray_dirs = get_sphere_rays(self.generator, 1, 2048,
+                                                   self.device)
+            else:
+                self.sh_ray_dirs = get_cubemap_rays(1, 32, device=self.device)
+        ray_dirs = self.sh_ray_dirs.reshape(-1, 3)
+        rays_o = self._t(pt)[None].expand(ray_dirs.shape)
+        with record_function("probe"):
+            rgb, _ = self.render(rays_o, ray_dirs, SH_bkg=self.global_sh[0])
+        rgb = self._probe_rgb(rgb)
+        self.cubemap_rgb = rgb
+        if return_envmap:
+            return _numpy(cubemap2env_map(rgb, 32, 128, 128))
+        if sh_probe:
+            return get_sh_coeff(ray_dirs[None], rgb[None])
+        with record_function("sg_fit"):
+            return self.env_opt.eval(cubemap2env_map(rgb, 32, 128, 128))
+
+    def _sphere_probe_rays(self, pts, ray_dirs):
+        pts = self._t(pts)
+        n = pts.shape[0]
+        if ray_dirs is None:
+            ray_dirs = get_sphere_rays(self.generator, n, 2048, self.device)
+        ray_dirs = self._t(ray_dirs)
+        return pts[:, None, :].expand(ray_dirs.shape), ray_dirs
+
+    def generate_sh_probes(self, pts, return_raw_rgb=False, ray_dirs=None):
+        """Batched SH probes with the global-SH background (reference
+        main.py:355-379). pts (x, 3); ray_dirs (x, n, 3), or None for 2048
+        sphere directions a probe, drawn from the generator."""
+        rays_o, ray_dirs = self._sphere_probe_rays(pts, ray_dirs)
+        rgb, _ = self.render(rays_o.reshape(-1, 3), ray_dirs.reshape(-1, 3),
+                             SH_bkg=self.global_sh[0])
+        rgb = self._probe_rgb(rgb).reshape(ray_dirs.shape)
+        if return_raw_rgb:
+            return rgb, ray_dirs
+        return get_sh_coeff(ray_dirs, rgb)
+
+    def generate_sh_probes_for_precompute(self, pts, ray_dirs=None):
+        """rgb and transmittance SH probes with NO background blend, the
+        inputs of the triple-product light composition (reference
+        main.py:382-407)."""
+        rays_o, ray_dirs = self._sphere_probe_rays(pts, ray_dirs)
+        res = self.render(rays_o.reshape(-1, 3), ray_dirs.reshape(-1, 3),
+                          blend_bkg=False, return_full_res=True)
+        rgb = res["rgb"].reshape(ray_dirs.shape)
+        trans = 1.0 - res["opacity"].reshape(*ray_dirs.shape[:2], 1)
+        return get_sh_coeff(ray_dirs, rgb), get_sh_coeff(ray_dirs, trans)
+
+    # -- shadows (reference main.py:419-519) -------------------------------
+
+    def _frame_points(self, rays_o, rays_d, rgb, depth_sur):
+        return (rays_o.reshape(rgb.shape) + rays_d.reshape(rgb.shape)
+                * depth_sur).reshape(-1, 3)
+
+    def shadow_field(self, rays_o, rays_d, rgb, depth_sur, model_sh9,
+                     **kwargs):
+        model_r = kwargs.get("model_radius")
+        model_pos = kwargs.get("model_pos")
+        if model_r is None or model_pos is None:
+            print("Use shadow field, but infos not complete!")
+            return rgb
+        pts = self._frame_points(rays_o, rays_d, rgb, depth_sur)
+        model_pos = self._t(model_pos)
+        rot_inv = kwargs.get("model_rot_inv")
+        if rot_inv is not None:
+            rot_inv = self._t(rot_inv)
+            sh = rotate_sh_by_recalc(self.sh_ray_dirs[0], self.cubemap_rgb,
+                                     rot_inv)
+            smap = soft_shadow_map(self.sf, model_pos, model_r, sh, pts,
+                                   rot_inv)
+        else:
+            smap = soft_shadow_map(self.sf, model_pos, model_r,
+                                   self._t(model_sh9), pts)
+        return rgb * smap.reshape(rgb.shape[0], rgb.shape[1], 1)
+
+    def shadow_cast(self, rays_o, rays_d, rgb, depth_sur, VP, tex_size,
+                    s_map, model_r):
+        """Rasterized shadow-map projection (reference main.py:450-474)."""
+        pts = self._frame_points(rays_o, rays_d, rgb, depth_sur)
+        pts_h = torch.cat([pts, torch.ones_like(pts[:, :1])], -1)
+        ras = (self._t(VP) @ pts_h.T).T
+        ras = torch.cat([ras[:, :3] / ras[:, 3:4], ras[:, 3:4]], -1)
+        rx = torch.clamp(((ras[:, 0] + 1) / 2 * tex_size).to(torch.int64),
+                         0, tex_size - 1)
+        ry = torch.clamp(((-ras[:, 1] + 1) / 2 * tex_size).to(torch.int64),
+                         0, tex_size - 1)
+        rz = 0.5 * (ras[:, 2] + 1)
+        shadow_dis = rz - self._t(s_map)[ry, rx, 0]
+        shadow_d = torch.clamp((shadow_dis / (model_r * 50)) ** 2, 0.2, 1.0)
+        smap = torch.where(shadow_dis < 0, 1.0, shadow_d)
+        smap = smap.reshape(rgb.shape[0], rgb.shape[1], 1)
+        return rgb * _blur_hw1(smap, 9)
+
+    def ssdf_shadow(self, rays_o, rays_d, rgb, depth_sur, l_sgs, **kwargs):
+        model_r = kwargs.get("model_radius")
+        model_pos = kwargs.get("model_pos")
+        if model_r is None or model_pos is None:
+            print("Use ssdf shadow, but infos not complete!")
+            return rgb
+        pts = self._frame_points(rays_o, rays_d, rgb, depth_sur)
+        model_pos = self._t(model_pos)
+        l_sgs = self._t(l_sgs)
+        rot_inv = kwargs.get("model_rot_inv")
+        if rot_inv is not None:
+            rot_inv = self._t(rot_inv)
+            l_rot = torch.cat([(rot_inv @ l_sgs[:, :3].T).T, l_sgs[:, 3:]],
+                              -1)
+            smap = self.sg_shadow.calc_shadow_factor(
+                model_r, pts, model_pos, l_rot, rot_inv)
+        else:
+            smap = self.sg_shadow.calc_shadow_factor(
+                model_r, pts, model_pos, l_sgs)
+        smap = smap.reshape(rgb.shape[0], rgb.shape[1], 1)
+        return rgb * _blur_hw1(smap, 3)
+
+    # -- object render + composite (reference main.py:521-684) -------------
+
+    def _per_pixel(self, v, n_pix, clip=False):
+        if np.ndim(v) == 0:
+            return torch.full((n_pix, 1), float(v), device=self.device)
+        v = self._t(v).reshape(-1, 1)
+        return torch.clamp(v, 0.2, 1.0) if clip else v
+
+    def render_object(self, model_bbox_cur, normals, depths, sh_or_sg, pose,
+                      metal=0.9, rough=0.2, albedo=None, use_sg_base=True,
+                      sg_use_self_shadow=True, **kwargs):
+        """PBR-shade the inserted object's pixels inside its screen bbox;
+        pixels of depth 0 are set to 0 at the end (reference
+        main.py:521-618)."""
+        depths = self._t(depths)
+        mask = (depths > 1e-6).reshape(-1, 1)
+        n_pix = mask.shape[0]
+        normal_px = self._t(normals).reshape(-1, 3)
+        if albedo is None:
+            albedo_px = torch.ones((n_pix, 3), device=self.device)
+        elif np.shape(albedo)[0] == 1:
+            albedo_px = self._t(albedo).reshape(1, 3).expand(n_pix, 3)
+        else:
+            albedo_px = self._t(albedo).reshape(-1, 3)
+        metal_px = self._per_pixel(metal, n_pix)
+        rough_px = self._per_pixel(rough, n_pix, clip=True)
+
+        (hs, ws), (hl, wl) = model_bbox_cur
+        height, width = hl - hs, wl - ws
+        rays_o, rays_d = get_rays(
+            self.directions[hs:hl, ws:wl].reshape(-1, 3), self._t(pose))
+        vdirs = normalize(rays_d)
+
+        clamp01 = not self.hparams.render_HDR_mapping
+        sh_or_sg = self._t(sh_or_sg)
+        if use_sg_base:
+            l_sgs = sh_or_sg
+            if sg_use_self_shadow:
+                pts = rays_o + depths.reshape(-1, 1) * vdirs
+                rot_inv = kwargs.get("model_rot_inv")
+                l_sgs = self.sg_shadow.calc_self_shadow_light_decay(
+                    kwargs.get("model_radius"), pts,
+                    self._t(kwargs.get("model_pos")), sh_or_sg,
+                    None if rot_inv is None else self._t(rot_inv))
+            cols = sg_render_core(albedo_px, metal_px, rough_px, normal_px,
+                                  vdirs, l_sgs, clamp01, sg_use_self_shadow,
+                                  self.cubemap_rgb)
+        else:
+            sh9 = sh_or_sg.reshape(1, SH_ORDER ** 2, 3).expand(
+                n_pix, SH_ORDER ** 2, 3)
+            cols = sh_render_core(albedo_px, metal_px, rough_px, normal_px,
+                                  vdirs, sh9, self.embed_fn_v,
+                                  self.model_brdf, clamp01, self.cubemap_rgb)
+        # a select, not the JAX package's product with the mask: a pixel
+        # off the object (depth 0) may carry a zero normal, whose shade is
+        # NaN, and NaN * 0 would stay NaN (the reference shades only the
+        # masked pixels)
+        cols = torch.where(mask, cols, 0.0)
+
+        render_res = torch.zeros((self.H, self.W, 3), device=self.device)
+        render_res[hs:hl, ws:wl] = cols.reshape(height, width, 3)
+        depth_t = torch.zeros((self.H, self.W), device=self.device)
+        depth_t[hs:hl, ws:wl] = depths.reshape(height, width)
+        return render_res, depth_t
+
+    def get_update_range(self, bbox_cur, bbox_last):
+        if bbox_last is None or bbox_cur is None:
+            return self.screen_bound
+        return [[min(bbox_cur[0][0], bbox_last[0][0]),
+                 min(bbox_cur[0][1], bbox_last[0][1])],
+                [max(bbox_cur[1][0], bbox_last[1][0]),
+                 max(bbox_cur[1][1], bbox_last[1][1])]]
+
+    def render_insert_object(self, normals, depths, pose, sh_or_sg,
+                             metal=0.9, rough=0.2, albedo=None,
+                             full_return=False, use_sg_base=True,
+                             sg_use_self_shadow=True, **kwargs):
+        """Object render, incremental (dirty-rect) NeRF recomposite clamped
+        at the mesh's depth, and the shadow pass (reference
+        main.py:620-684; the JAX package's general multi-stage path,
+        arnerf_tpu/insert/main.py:936-996). The frame buffers last_rgb and
+        last_depth are updated in place; what is returned is a copy."""
+        model_bbox = kwargs.get("model_bbox")
+        with record_function("shade"):
+            render_res, depth_t = self.render_object(
+                model_bbox, normals, depths, sh_or_sg, pose, metal, rough,
+                albedo, use_sg_base, sg_use_self_shadow, **kwargs)
+
+        (hs, ws), (hl, wl) = self.get_update_range(
+            model_bbox, kwargs.get("model_bbox_last"))
+        height, width = hl - hs, wl - ws
+        pose = self._t(pose)
+        rays_o, rays_d = get_rays(
+            self.directions[hs:hl, ws:wl].reshape(-1, 3), pose)
+        with record_function("rect"):
+            rgb, depth_sur = self.render(
+                rays_o, rays_d,
+                IM_bkg=render_res[hs:hl, ws:wl].reshape(-1, 3),
+                mesh_depth_map=depth_t[hs:hl, ws:wl].reshape(-1))
+        if self.last_rgb is None:
+            self.last_rgb = torch.zeros((self.H, self.W, 3),
+                                        device=self.device)
+            self.last_depth = torch.zeros((self.H, self.W, 1),
+                                          device=self.device)
+        self.last_rgb[hs:hl, ws:wl] = rgb.reshape(height, width, 3)
+        self.last_depth[hs:hl, ws:wl] = depth_sur.reshape(height, width, 1)
+        rgb = self.last_rgb.clone()
+        depth_sur = self.last_depth
+
+        gen_shadow = kwargs.get("gen_shadow", 0)
+        if gen_shadow:
+            rays_o, rays_d = get_rays(self.directions.reshape(-1, 3), pose)
+            with record_function("shadow"):
+                if gen_shadow == 2:
+                    rgb = self.shadow_cast(rays_o, rays_d, rgb, depth_sur,
+                                           kwargs.get("s_VP"),
+                                           kwargs.get("s_texSize"),
+                                           kwargs.get("s_im"),
+                                           kwargs.get("model_radius"))
+                elif use_sg_base:
+                    rgb = self.ssdf_shadow(rays_o, rays_d, rgb, depth_sur,
+                                           sh_or_sg, **kwargs)
+                else:
+                    rgb = self.shadow_field(rays_o, rays_d, rgb, depth_sur,
+                                            sh_or_sg, **kwargs)
+
+        rgb_final = rgb
+        if self.hparams.render_HDR_mapping:
+            rgb_final = tonemapping_simple(rgb_final)
+        rgb_final = _numpy(rgb_final)
+        if full_return:
+            return rgb_final, rgb, depth_t, render_res
+        return rgb_final
+
+
+class NGPServer:
+    """The TCP protocol of the external viewer, 14 actions (reference
+    insert/main.py:687-1191). The byte layouts, the row flips and the
+    GL-to-NeRF pose flip are the JAX package's. `port` is where the server
+    listens first (5001 in the reference; it counts up on conflicts)."""
+
+    def __init__(self, insertor: NGPInsertor, record=False, port=5001):
+        self.insertor = insertor
+        self.use_sg_base = True
+        self.sg_use_self_shadow = True
+        self.server = Server("127.0.0.1", port)
+        HWF = [insertor.H, insertor.W, float(insertor.K[0, 0])]
+        self.server.send(struct.pack("iif", *HWF))
+        self.server.send(np.asarray(insertor.blender_trans,
+                                    np.float32).tobytes())
+        self.server.send(struct.pack("f", insertor.blender_scale))
+        print("H,W,F for current scene is:", HWF)
+        self.act_dict = {
+            1: self.probe_pos_decoder,
+            2: self.cam_pose_decoder,
+            3: self.map_decoder,
+            4: self.material_decoder,
+            5: self.shadow_field_decoder,
+            6: self.render,
+            7: self.shadow_map_decoder,
+            8: self.shadow_path_decoder,
+            9: self.ssdf_path_decoder,
+            10: self.sg_use_sshadow,
+            11: self.cmp_methods_decoder,
+            12: self.run_decomposition_cmp_decoder,
+            13: self.update_save_index_decoder,
+            14: self.sg_shadow_facs_decoder,
+        }
+        self.cam_pose = None
+        self.normal = None
+        self.depth = None
+        self.sh = None
+        self.sg = None
+        self.fixed_lighting = False
+        self.shadow_mode = 0
+        self.model_pos = None
+        self.model_radius = None
+        self.model_rot_inv = None
+        self.model_bbox = None
+        self.model_bbox_last = None
+        self.pose_last = None
+        self.s_texSize = None
+        self.s_VP = None
+        self.s_im = None
+        self.render_num = 0
+        self.last_render_num = -1
+        self.save_idx = 0
+        self.metal = 0.9
+        self.rough = 0.2
+        self.albedo = None
+        self.dt = 0
+        self.vw = None
+        self.display = os.environ.get("DISPLAY") is not None
+        if record:
+            import cv2
+            video_path = os.path.join(insertor.gen_path, "video.avi")
+            fourcc = cv2.VideoWriter_fourcc(*"XVID")
+            self.vw = cv2.VideoWriter(video_path, fourcc, 10.0,
+                                      (insertor.W, insertor.H), True)
+
+    def _t(self, x):
+        return self.insertor._t(x)
+
+    # -- decoders ----------------------------------------------------------
+
+    def main_direction_light_sender(self):
+        """reference main.py:758-768 (hard-codes a light anchor point)."""
+        t = self._t([0.194, -0.165, -0.270]) - self.model_pos
+        self.main_light = normalize(t.reshape(1, 3))
+        self.server.send(_numpy(self.main_light).astype(np.float32)
+                         .tobytes())
+
+    def sg_light_sender(self):
+        self.server.send(_numpy(self.sg).astype(np.float32).tobytes())
+
+    def probe_pos_decoder(self, buf):
+        """Action 1: the object moved -> regenerate the light probe
+        (reference main.py:774-801)."""
+        if self.last_render_num < self.render_num:
+            self.last_render_num = self.render_num
+        else:
+            self.model_bbox_last = None
+        self.shadow_mode, px, py, pz = struct.unpack("ifff", buf[:16])
+        self.model_rot_inv = self._t(
+            np.frombuffer(buf[16:], np.float32).reshape(3, 3).T.copy())
+        self.model_pos = self._t([px, py, pz])
+        if not self.fixed_lighting:
+            if self.use_sg_base:
+                self.sg = trans_raw_sg(
+                    self.insertor.generate_probe(self.model_pos, False))
+            else:
+                self.sh = self.insertor.generate_probe(self.model_pos, True)
+        if self.shadow_mode == 2:
+            self.main_direction_light_sender()
+
+    def cam_pose_decoder(self, buf):
+        """Action 2: GL camera pose -> NeRF convention flip
+        (reference main.py:803-807)."""
+        pose = np.array(struct.unpack("f" * 16, buf),
+                        np.float32).reshape(4, 4)[:3]
+        pose = np.stack([pose[:, 0], -pose[:, 1], -pose[:, 2], pose[:, 3]],
+                        -1)
+        self.cam_pose = self._t(pose)
+
+    def map_decoder(self, buf):
+        """Action 3: object raster maps (normal/depth [+SV-BRDF]) + bbox
+        (reference main.py:817-846)."""
+        self.model_radius, hs, ws, hl, wl = struct.unpack("fiiii", buf[:20])
+        self.model_bbox_last = self.model_bbox
+        self.model_bbox = [[hs, ws], [hl, wl]]
+        H, W = hl - hs, wl - ws
+        im = np.frombuffer(buf[20:], np.float32)
+        if im.shape[0] > H * W * 4:  # SV-BRDF maps
+            px = H * W * 3
+            normal = im[:px].reshape(H, W, 3)
+            albedo = im[px:2 * px].reshape(H, W, 3)
+            dmr = im[2 * px:].reshape(H, W, 3)
+            self.normal = self._t(normal[::-1].copy())
+            self.depth = self._t(dmr[::-1, :, 0].copy())
+            self.albedo = self._t(albedo[::-1].copy())
+            self.metal = self._t(dmr[::-1, :, 1].copy())
+            self.rough = self._t(dmr[::-1, :, 2].copy())
+        else:
+            im = im.reshape(H, W, 4)
+            self.normal = self._t(im[::-1, :, :3].copy())
+            self.depth = self._t(im[::-1, :, 3].copy())
+
+    def material_decoder(self, buf):
+        """Action 4 (reference main.py:848-850)."""
+        self.rough, self.metal, r, g, b = struct.unpack("fffff", buf)
+        self.albedo = self._t([[r, g, b]])
+
+    def shadow_field_decoder(self, buf):
+        """Action 5 (reference main.py:852-855)."""
+        r, hmin, wmin, hmax, wmax = struct.unpack("fiiii", buf)
+        self.model_radius = r
+        self.model_bbox = [[hmin, wmin], [hmax, wmax]]
+
+    def shadow_map_decoder(self, buf):
+        """Action 7: rasterized shadow map (reference main.py:857-867)."""
+        tex_size = struct.unpack("i", buf[:4])[0]
+        s_vp = np.array(struct.unpack("f" * 16, buf[4:68]),
+                        np.float32).reshape(4, 4)
+        s_im = np.frombuffer(buf[68:], np.float32).reshape(
+            tex_size, tex_size, 1)
+        self.s_texSize = tex_size
+        self.s_VP = self._t(s_vp)
+        self.s_im = self._t(s_im[::-1].copy())
+
+    def shadow_path_decoder(self, buf):
+        """Action 8: load a mesh's shadow-field volume; switches to the SH
+        pipeline (reference main.py:869-879)."""
+        model_name = buf.decode()
+        sf_dir = os.path.join(self.insertor.gen_path, "model_data")
+        os.makedirs(sf_dir, exist_ok=True)
+        sf_path = os.path.join(sf_dir, model_name + ".npz")
+        if not os.path.exists(sf_path):
+            raw = os.path.join(os.environ.get("VIEWER_SF_PATH", "."),
+                               model_name + ".txt")
+            transform_sf_txt(raw, sf_path)
+        self.insertor.set_sf(sf_path)
+        self.use_sg_base = False
+
+    def ssdf_path_decoder(self, buf):
+        """Action 9: load the mesh's SG-SSDF PCA volume; switches to the SG
+        pipeline (reference main.py:881-888)."""
+        model_name = buf.decode()
+        sg_path = os.path.join(os.environ.get("VIEWER_SG_PATH", "."),
+                               model_name + ".tar")
+        self.insertor.set_sg_shadow(sg_path)
+        self.use_sg_base = True
+
+    def sg_use_sshadow(self, buf):
+        """Action 10 (reference main.py:989-995)."""
+        self.sg_use_self_shadow = struct.unpack("i", buf)[0] == 1
+
+    def sg_shadow_facs_decoder(self, buf):
+        """Action 14 (reference main.py:1106-1110)."""
+        ins = self.insertor.sg_shadow
+        (ins.delta_angle_decay_fac, ins.delta_shadow_fac,
+         ins.delta_self_shadow_fac) = struct.unpack("fff", buf)
+
+    def update_save_index_decoder(self, buf):
+        """Action 13 (reference main.py:1097-1104)."""
+        results = os.path.join(self.insertor.gen_path, "results")
+        cmp_path = os.path.join(results, f"cmp{self.save_idx}")
+        try:
+            os.mkdir(cmp_path)
+            for f in glob.glob(os.path.join(results, f"{self.save_idx}_*")):
+                shutil.move(f, cmp_path)
+        except OSError:
+            print(f"{cmp_path} exists, auto organize close")
+        self.save_idx = struct.unpack("i", buf)[0]
+
+    def cmp_methods_decoder(self, buf):
+        """Action 11: comparisons against external lighting estimators; they
+        need those methods' result files (reference main.py:933-986)."""
+        print("cmp_methods: external IRAdobe/EMLight results not available "
+              "in this environment; skipping")
+
+    # -- rendering actions -------------------------------------------------
+
+    def _render_kwargs(self):
+        kwargs = {}
+        if self.model_radius is not None:
+            kwargs = {"model_radius": self.model_radius,
+                      "model_pos": self.model_pos,
+                      "model_bbox": self.model_bbox,
+                      "model_bbox_last": self.model_bbox_last,
+                      "gen_shadow": self.shadow_mode}
+        if self.s_texSize is not None:
+            kwargs.update({"s_texSize": self.s_texSize, "s_VP": self.s_VP,
+                           "s_im": self.s_im})
+        if USE_STD_SF:
+            kwargs["model_rot_inv"] = self.model_rot_inv
+        return kwargs
+
+    def _results_path(self, name):
+        return os.path.join(self.insertor.gen_path, "results",
+                            f"{self.save_idx}_{name}")
+
+    def save_results(self, buf, **kwargs):
+        """Action 6 with a save prefix: the frame as PNG and its HDR
+        buffer as EXR (reference main.py:997-1024)."""
+        is_save_infos = struct.unpack("i", buf[:4])[0]
+        save_prefix = buf[4:].decode()
+        rgb, rgb_hdr, obj_depth, obj_render = \
+            self.insertor.render_insert_object(
+                self.normal, self.depth, self.cam_pose,
+                self.sg if self.use_sg_base else self.sh,
+                self.metal, self.rough, self.albedo, True,
+                self.use_sg_base, self.sg_use_self_shadow, **kwargs)
+        write_png(self._results_path(f"{save_prefix}.png"),
+                  (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+        write_exr(self._results_path(f"{save_prefix}.exr"), _numpy(rgb_hdr))
+        if is_save_infos == 1:
+            np.savez(self._results_path("info.npz"),
+                     rgb_HDR=_numpy(rgb_hdr), obj_depth=_numpy(obj_depth),
+                     obj_render=_numpy(obj_render))
+            print(f"Current render result saved with id: {self.save_idx}")
+        return rgb
+
+    def run_decomposition_cmp_decoder(self, buf):
+        """Action 12: decomposition ablations (reference main.py:1027-1095)."""
+        def write(name, im):
+            im = _numpy(tonemapping_simple(im))
+            write_png(self._results_path(name),
+                      (np.clip(im, 0, 1) * 255).astype(np.uint8))
+
+        write("nerf_SG.png", sg2envmap(self.sg, 256, 512).flip(0, 1))
+        sd, ssd = self.shadow_mode, self.sg_use_self_shadow
+        self.shadow_mode = 0
+        self.sg_use_self_shadow = False
+        self.render(struct.pack("i", 0) + b"nerf_no_any_shadow")
+        self.shadow_mode = 1
+        self.render(struct.pack("i", 0) + b"nerf_no_self_shadow")
+        self.sg_use_self_shadow = True
+
+        if self.insertor.global_sh is not None:
+            gsh = self.insertor.global_sh
+            n_iter = self.insertor.env_opt.n_iter
+            self.insertor.env_opt.n_iter = 450
+            self.insertor.global_sh = torch.zeros_like(gsh)
+            self.sg = trans_raw_sg(
+                self.insertor.generate_probe(self.model_pos, False))
+            self.render(struct.pack("i", 0) + b"nerf_no_globalSH")
+            self.insertor.global_sh = gsh
+            self.insertor.env_opt.n_iter = n_iter
+            write("globalSH.png", sh2envmap(gsh[0], 256, 512).flip(0, 1))
+        self.shadow_mode, self.sg_use_self_shadow = sd, ssd
+
+    def render(self, buf):
+        """Action 6 (reference main.py:1113-1178): render the frame, reply
+        "render complete"."""
+        t_s = time.time()
+        if self.pose_last is not None and self.cam_pose is not None:
+            if float(torch.sum(torch.abs(self.cam_pose
+                                         - self.pose_last))) > 1e-6:
+                self.model_bbox_last = None
+        self.pose_last = self.cam_pose
+
+        if self.normal is None or self.depth is None or \
+                (self.sh is None and self.sg is None):
+            if self.cam_pose is None:
+                print("Error: render info not complete")
+                rgb = None
+            else:
+                rgb, _, _, _ = self.insertor.render_pose(self.cam_pose)
+        else:
+            kwargs = self._render_kwargs()
+            if len(buf) != 0:
+                rgb = self.save_results(buf, **kwargs)
+            else:
+                rgb = self.insertor.render_insert_object(
+                    self.normal, self.depth, self.cam_pose,
+                    self.sg if self.use_sg_base else self.sh,
+                    self.metal, self.rough, self.albedo, False,
+                    self.use_sg_base, self.sg_use_self_shadow, **kwargs)
+        if rgb is not None:
+            self._display(rgb)
+        self.dt = time.time() - t_s
+        self.render_num += 1
+        try:
+            self.server.send(struct.pack("i", 0))  # render complete
+        except OSError:
+            pass
+
+    def _display(self, rgb):
+        """Recording (record=True) and an on-screen window need OpenCV."""
+        if self.vw is not None:
+            import cv2
+            self.vw.write(cv2.cvtColor((np.clip(rgb, 0, 1) * 255)
+                                       .astype("uint8"), cv2.COLOR_RGB2BGR))
+        if self.display:
+            try:
+                import cv2
+                cv2.imshow("render", cv2.cvtColor(
+                    np.asarray(rgb, np.float32), cv2.COLOR_RGB2BGR))
+                cv2.waitKey(1)
+            except Exception:   # noqa: BLE001 - no OpenCV or no display
+                self.display = False
+
+    def run(self):
+        while True:
+            buf = self.server.receive()
+            if buf == b"":
+                break
+            action = int.from_bytes(buf[:4], "little")
+            if action == 0:
+                break
+            self.act_dict[action](buf[4:])
+
+    def __del__(self):
+        if self.vw is not None:
+            self.vw.release()
+
+
+def main(argv=None):
+    """The insertion server: surface cache and point cloud, the global-SH
+    fit (unless --no_global_SH), then the viewer protocol."""
+    from ..opt import get_opts
+    hparams = get_opts(argv)
+    insertor = NGPInsertor(hparams)
+    insertor.generate_point_cloud()
+    if not hparams.no_global_SH:
+        insertor.train_global_sh_light()
+    NGPServer(insertor, False).run()
+
+
+if __name__ == "__main__":
+    main()

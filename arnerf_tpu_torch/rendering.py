@@ -14,6 +14,10 @@ profile of a render attributes device time to layers. With no profiler
 active a span costs about a microsecond; an 800x800 view opens a few
 dozen.
 
+`render_surface_normal` (the AR insertor's surface cache) differentiates
+the density with respect to the positions only, so the hash-grid backward
+never computes the table gradient there.
+
 `render_train` is the differentiable training render (marching, field,
 compositing, background blend) on explicit noise, corner seed and
 background; `draw_train_inputs` draws those from generators. The JAX
@@ -24,7 +28,9 @@ default there.
 import torch
 from torch.profiler import record_function
 
-from .models.ngp import NGPConfig, ngp_forward, ngp_forward_chunked
+from .insert.sh_math import get_sh_val
+from .models.ngp import (NGPConfig, ngp_density, ngp_forward,
+                         ngp_forward_chunked)
 from .ops.composite import composite_test_step, composite_train
 from .ops.intersection import ray_aabb_intersect_single
 from .ops.marching import (build_coarse_occupancy, coarse_dilation_radius,
@@ -367,15 +373,14 @@ def render_test_fast(params, grid_state, rays_o, rays_d, cfg: NGPConfig, *,
 def render_test(params, grid_state, rays_o, rays_d, cfg: NGPConfig, *,
                 chunk: int = 1 << 16, sh_bkg=None, im_bkg=None,
                 blend_bkg: bool = True, fast: bool = False, **kwargs):
-    """Full test-time render, chunked over rays, with the reference's image
-    background option (rendering.py:240-250).
+    """Full test-time render, chunked over rays, with the reference's
+    background options (rendering.py:240-250): an SH environment `sh_bkg`
+    (9, 3), evaluated along each ray and clamped positive, or an image
+    background `im_bkg` (N, 3) (AR insertion), or none.
 
     Step sizing mirrors the reference's test kernel, which passes
     `cascades` where calc_dt expects `scale` (raymarching.cu:370,399);
     override with dt_scale=None to step exactly as in training."""
-    if sh_bkg is not None:
-        raise NotImplementedError(
-            "sh_bkg needs insert/sh_math, which the port does not have yet")
     N = rays_o.shape[0]
     chunk = min(chunk, N)
     if "dt_scale" not in kwargs:
@@ -403,7 +408,52 @@ def render_test(params, grid_state, rays_o, rays_d, cfg: NGPConfig, *,
                   for k in ("opacity", "depth", "rgb")}
         result["total_samples"] = sum(o["total_samples"] for o in outs)
 
-    if blend_bkg and im_bkg is not None:
+    if blend_bkg and (im_bkg is not None or sh_bkg is not None):
+        # the image background wins where both are given
+        rgb_bg = im_bkg if im_bkg is not None else \
+            get_sh_val(sh_bkg, rays_d, clamp_positive=True)
         result["rgb"] = result["rgb"] \
-            + im_bkg * (1.0 - result["opacity"][:, None])
+            + rgb_bg * (1.0 - result["opacity"][:, None])
     return result
+
+
+def render_surface_normal(params, pts, cfg: NGPConfig):
+    """Surface normals as the negative normalized density gradient
+    (arnerf_tpu/rendering.py:652-665; reference models/rendering.py:300-313).
+    pts: (..., 3) -> (..., 3).
+
+    The gradient is taken with respect to the positions only: every
+    parameter is detached, so the hash-grid backward computes d_x and never
+    the table gradient (no segment sum runs). Points are independent, so
+    chunks of 2^18 rows bound memory without changing any result."""
+    frozen = _detached(params)
+    flat = pts.reshape(-1, 3)
+    chunk = 1 << 18
+    grads = []
+    for i in range(0, flat.shape[0], chunk):
+        x = flat[i:i + chunk].detach().requires_grad_(True)
+        with torch.enable_grad():
+            sigma = ngp_density(frozen, x, cfg)
+            (g,) = torch.autograd.grad(sigma.sum(), x)
+        grads.append(g)
+    g = torch.nan_to_num(torch.cat(grads), nan=0.0, posinf=1.0, neginf=-1.0)
+    normals = -g / (torch.linalg.norm(g, dim=-1, keepdim=True) + 1e-6)
+    return normals.reshape(pts.shape)
+
+
+@torch.no_grad()
+def render_surface_rgb(params, pts, rays_d, cfg: NGPConfig, **kwargs):
+    """Radiance emitted at surface points toward given directions
+    (arnerf_tpu/rendering.py:668-674; reference models/rendering.py:315-320).
+    """
+    _, rgbs = ngp_forward(params, pts.reshape(-1, 3), rays_d.reshape(-1, 3),
+                          cfg, **kwargs)
+    return rgbs.reshape(*pts.shape[:-1], 3)
+
+
+def _detached(tree):
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_detached(v) for v in tree]
+    return tree.detach()

@@ -20,13 +20,12 @@ than synthetic.
 
 import json
 import os
-import struct
 import sys
-import zlib
 
 import numpy as np
 import torch
 
+from .image_io import write_png
 from .opt import get_opts, model_config
 
 
@@ -43,25 +42,6 @@ def _refuse_unported(hparams):
     if hparams.dataset_name not in dataset_dict:
         raise SystemExit(f"dataset {hparams.dataset_name!r} is not ported to "
                          f"arnerf_tpu_torch yet (have: {sorted(dataset_dict)})")
-
-
-def write_png(path, img):
-    """img: (H, W) or (H, W, 3) uint8 -> an 8-bit PNG file."""
-    img = np.ascontiguousarray(img, dtype=np.uint8)
-    h, w = img.shape[:2]
-    color = 2 if img.ndim == 3 else 0
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
-
-    def chunk(tag, data):
-        body = tag + data
-        return struct.pack(">I", len(data)) + body \
-            + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color,
-                                             0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 def depth2img(depth):

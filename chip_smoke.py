@@ -27,6 +27,17 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  renders the checkpoint at 800x800. The segment-sum kernel
                  must run in both modes and the fused head must run; train
                  PSNR must pass 19 dB and validation PSNR 17 dB.
+  insert   - the AR insertion server's path at 800x800 from the train
+                 phase's checkpoint: NGPInsertor, the surface cache and
+                 point cloud over the 24 training poses, plane RANSAC, the
+                 probe precompute (cut to INSERT_PROBE_POINTS points), 200
+                 global-SH iterations; then NGPServer in a thread behind a
+                 real socket, driven by a viewer: the camera, an SSDF
+                 volume, INSERT_FRAMES object moves (actions 1, 3, 6 with a
+                 sphere's normal/depth raster), a shadow-map frame and a
+                 saved frame (PNG + EXR). The fused head must run and the
+                 segment sum must not; frames must be finite; one SG and one
+                 SH frame at 64x64 in f32 must match the CPU's to 1e-3.
   real_updates - the segment sum in both modes on the updates of one real
                  post-warmup training step of the trained model (captured
                  from the hash-grid backward), against its plain version,
@@ -35,8 +46,9 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  a small size, on the card (kernels) and on the CPU (plain
                  versions) must agree; the compositing's per-ray totals
                  of empty rays must be exactly zero on the card.
-Then torch.profiler passes over one bf16 view and one post-warmup training
-block print where their time goes (measurements only; they fail nothing).
+Then torch.profiler passes over one bf16 view, one post-warmup training
+block and one AR frame print where their time goes (measurements only;
+they fail nothing).
 Prints the card's name and power limit, then one JSON line of per-kernel
 numbers, then the result line {"ok": true, "device": {...}}.
 """
@@ -44,6 +56,7 @@ numbers, then the result line {"ok": true, "device": {...}}.
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -58,6 +71,14 @@ PARITY_ROWS = (1 << 21) + 3     # the 2M-sample render round, ragged
 MAIN_PATH_ROWS = 1 << 18        # ngp_forward_chunked's chunk: one launch
 TRAIN_SAMPLES = 8192 * 32       # batch x sample budget: one training step
 SMOKE_DIR = ROOT / "build" / "arnerf_tpu_torch" / "smoke"
+INSERT_FRAMES = 12              # object-move frames through the server
+INSERT_PROBE_POINTS = 2048      # planar points of the probe precompute
+# card vs CPU at 64x64 in f32, max abs: the SH probe and the SH frame to
+# 1e-3; the SG frame to 5e-3, ~10x what rounding its inputs alone moves
+# the CPU's frame (insert_card_vs_cpu reports it; 5.2e-4 in a run on an
+# H100's host): SG lobes of lambda in the hundreds, and the GGX lobe's at
+# grazing angles, turn roundings of the cosines into that much
+INSERT_TOL = (1e-3, 5e-3, 1e-3)
 TRAIN_ARGV = ["--dataset_name", "synthetic", "--downsample", "3.125",
               "--num_epochs", "1", "--batch_size", "8192",
               "--exp_name", "smoke"]
@@ -428,6 +449,7 @@ def run_train(state):
                                    for k in ("head", "pack", "exact")}
         state["train_val_launches"] = fh.launches - counts["head"]
         ckpt = str(work / res["ckpt_dir"] / "epoch=0.npz")
+        state["train_ckpt"] = ckpt
     finally:
         os.chdir(cwd)
     trainer = res["trainer"]
@@ -741,6 +763,454 @@ def profile_view(ckpt, dev):
     _print_kernels(kernels, 12)
 
 
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Viewer:
+    """The external OpenGL viewer's side of the insertion server's
+    length-prefixed protocol (arnerf_tpu_torch/insert/server.py)."""
+
+    def __init__(self, port):
+        import socket
+        self.s = socket.create_connection(("127.0.0.1", port), timeout=300)
+
+    def recv(self):
+        n = int.from_bytes(self._recvn(8), "little")
+        return self._recvn(n)
+
+    def _recvn(self, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = self.s.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("the insertion server closed the "
+                                      "connection")
+            buf += chunk
+        return buf
+
+    def send(self, aid, body=b""):
+        import struct
+        msg = struct.pack("i", aid) + body
+        self.s.sendall(len(msg).to_bytes(8, "little") + msg)
+
+
+def _gl_pose(c2w):
+    """A NeRF c2w (3, 4) [right down front] as the viewer's GL pose (4, 4),
+    the inverse of NGPServer.cam_pose_decoder's flip."""
+    import numpy as np
+    c2w = np.asarray(c2w, np.float32)
+    gl = np.eye(4, dtype=np.float32)
+    gl[:3] = np.stack([c2w[:, 0], -c2w[:, 1], -c2w[:, 2], c2w[:, 3]], -1)
+    return gl
+
+
+def sphere_raster(c2w, K, H, W, center, radius):
+    """The viewer's raster of a sphere: bbox [[hs, ws], [hl, wl]] and an
+    (h, w, 4) float32 map of world normals and z-depth (0 off the sphere),
+    rows bottom-up as the viewer sends them."""
+    import numpy as np
+    c2w = np.asarray(c2w, np.float64)
+    R, o = c2w[:, :3], c2w[:, 3]
+    center = np.asarray(center, np.float64)
+    xc = R.T @ (center - o)
+    if xc[2] <= radius:
+        raise AssertionError(f"the object at {center} is behind the camera")
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    u, v = fx * xc[0] / xc[2] + cx, fy * xc[1] / xc[2] + cy
+    half = int(np.ceil(fx * radius / (xc[2] - radius))) + 1
+    hs, hl = max(int(v) - half, 0), min(int(v) + half, H)
+    ws, wl = max(int(u) - half, 0), min(int(u) + half, W)
+    if hl - hs < 8 or wl - ws < 8:
+        raise AssertionError(f"the object at {center} is off screen")
+    vv, uu = np.meshgrid(np.arange(hs, hl) + 0.5, np.arange(ws, wl) + 0.5,
+                         indexing="ij")
+    d = np.stack([(uu - cx) / fx, (vv - cy) / fy, np.ones_like(uu)], -1) @ R.T
+    oc = o - center
+    a = np.sum(d * d, -1)
+    b = 2 * d @ oc
+    disc = b * b - 4 * a * (oc @ oc - radius ** 2)
+    hit = disc > 0
+    t = np.where(hit, (-b - np.sqrt(np.maximum(disc, 0))) / (2 * a), 0.0)
+    nrm = (o + t[..., None] * d - center) / radius * hit[..., None]
+    raster = np.concatenate([nrm, t[..., None]], -1).astype(np.float32)
+    return [[hs, ws], [hl, wl]], np.ascontiguousarray(raster[::-1])
+
+
+def _ssdf_volume(path, seed=0):
+    """A seeded PCA SSDF volume in the viewer's torch .tar layout (20^3
+    grid, 128 components over a 74 x 148 lat-long map)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    torch.save({"coeff": torch.from_numpy(rng.normal(
+                    0, 0.02, (20 ** 3, 128)).astype(np.float32)),
+                "component": torch.from_numpy(rng.normal(
+                    0, 0.05, (128, 74, 148)).astype(np.float32)),
+                "mean": torch.full((1, 74, 148), 0.3)}, path)
+
+
+def _insert_hparams(ckpt, downsample, device, compute_dtype="auto"):
+    from arnerf_tpu_torch.opt import get_opts
+    return get_opts(["--dataset_name", "synthetic", "--downsample",
+                     str(downsample), "--ckpt_path", ckpt, "--exp_name",
+                     "smoke", "--device", device, "--compute_dtype",
+                     compute_dtype])
+
+
+def _synced(dev, fn):
+    import torch
+
+    def run(*a, **k):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        run.ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+    run.ms = []
+    return run
+
+
+def run_insert(ckpt, dev, downsample=6.25, frames=INSERT_FRAMES,
+               probe_points=INSERT_PROBE_POINTS, radius=0.1, min_plane=1e5):
+    """The insertion server's path on `dev`: the prep (insertor, surface
+    cache and point cloud, planes, probe precompute cut to `probe_points`,
+    200 global-SH iterations) and then NGPServer behind a real socket with
+    a viewer that sends the camera, the SSDF volume and `frames` frames of
+    object moves (actions 1, 3, 6), one shadow-map frame and one saved
+    frame. Returns the measurements; checks nothing itself."""
+    import struct
+    import threading
+    import numpy as np
+    import torch
+    from arnerf_tpu_torch.insert import main as im
+    from arnerf_tpu_torch.insert.global_light import GlobalLightEstimator
+    from arnerf_tpu_torch.ops import fused_head as fh
+    from arnerf_tpu_torch.ops import segments as seg
+    work = SMOKE_DIR / "insert"
+    work.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(work)
+    shutil.rmtree(work / "insert", ignore_errors=True)
+    res = {"prep_s": {}, "launches": {}}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def stage(name, fn):
+        sync()
+        n0, t0 = fh.launches, time.perf_counter()
+        out = fn()
+        sync()
+        for key, v in (("prep_s", time.perf_counter() - t0),
+                       ("launches", fh.launches - n0)):
+            res[key][name] = res[key].get(name, 0) + v
+        return out
+
+    samples = []
+    render_test = im.render_test
+
+    def counted(*a, **k):
+        out = render_test(*a, **k)
+        samples.append(int(out["total_samples"]))
+        return out
+    im.render_test = counted
+    try:
+        fh.reset_launches()
+        seg.reset_launches()
+        ins = stage("insertor", lambda: im.NGPInsertor(
+            _insert_hparams(ckpt, downsample, dev.type)))
+        stage("surface_and_point_cloud", ins.generate_point_cloud)
+        gle = stage("planes", lambda: GlobalLightEstimator(ins.gen_path))
+        stage("planes", lambda: gle.detect_planar_patch(min_plane))
+        n_plane = len(gle.t_pts)
+        keep = np.random.default_rng(0).permutation(n_plane)[:probe_points]
+        gle.t_pts, gle.t_rgbs, gle.t_normal = (
+            gle.t_pts[keep], gle.t_rgbs[keep], gle.t_normal[keep])
+        print(f"insert: {n_plane} planar points; the probe precompute is cut "
+              f"to {len(keep)} points x 2048 rays (the reference's pts_use "
+              f"2e6 would take hours)", flush=True)
+        stage("probe_precompute", lambda: gle.save_results(ins))
+        stage("global_sh_fit", lambda: ins.fit_global_sh(gle))
+        res["prep_samples"] = sum(samples)
+        res["global_sh_dc"] = ins.global_sh[0, 0].tolist()
+
+        # serving: NGPServer in a thread, this thread the viewer
+        _ssdf_volume(work / "smoke_mesh.tar")
+        os.environ["VIEWER_SG_PATH"] = str(work)
+        port = _free_port()
+        holder, errors = {}, []
+
+        def serve():
+            try:
+                holder["srv"] = srv = im.NGPServer(ins, port=port)
+                for a in (1, 6, 9):
+                    srv.act_dict[a] = holder[a] = _synced(dev,
+                                                          srv.act_dict[a])
+                srv.run()
+            except BaseException as e:   # noqa: BLE001 - re-raised below
+                errors.append(e)
+                if "srv" in holder:
+                    holder["srv"].server.conn.close()
+        fit = ins.env_opt.eval = _synced(dev, ins.env_opt.eval)
+        shaded = []
+        insert_object = ins.render_insert_object
+
+        def keep_frame(*a, **k):
+            out = insert_object(*a, **k)
+            shaded.append(out[0] if isinstance(out, tuple) else out)
+            return out
+        ins.render_insert_object = keep_frame
+        th = threading.Thread(target=serve, daemon=True)
+        th.start()
+        viewer = None
+        for _ in range(600):
+            try:
+                viewer = _Viewer(port)
+                break
+            except OSError:
+                if errors:
+                    raise errors[0]
+                time.sleep(0.05)
+        if viewer is None:
+            raise AssertionError("the insertion server did not listen")
+        H, W, _ = struct.unpack("iif", viewer.recv())
+        viewer.recv()
+        viewer.recv()
+        pose = ins.dataset.poses[0]
+        viewer.send(2, struct.pack("f" * 16, *_gl_pose(pose).ravel()))
+        viewer.send(9, b"smoke_mesh")
+        rot = np.eye(3, dtype=np.float32).tobytes()
+        frame_ms, frame_launches, frame_samples, raster = [], [], [], None
+
+        def frame(i, mode, body6=b""):
+            nonlocal raster
+            center = (0.22 + 0.004 * i, 0.17, 0.12 - 0.003 * i)
+            bbox, raster = sphere_raster(pose, ins.K, H, W, center, radius)
+            n0, s0 = fh.launches, len(samples)
+            t0 = time.perf_counter()
+            viewer.send(1, struct.pack("ifff", mode, *center) + rot)
+            if mode == 2:
+                viewer.recv()                    # the main light direction
+            viewer.send(3, struct.pack("fiiii", radius, *bbox[0], *bbox[1])
+                        + raster.tobytes())
+            viewer.send(6, body6)
+            if struct.unpack("i", viewer.recv()) != (0,):
+                raise AssertionError("no render-complete reply")
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            frame_launches.append(fh.launches - n0)
+            frame_samples.append(sum(samples[s0:]))
+
+        for i in range(frames):
+            frame(i, 1)
+        tex = 512
+        vp = np.array([[1.5, 0, 0, 0], [0, 0, 1.5, 0], [0, -1, 0, 0.8],
+                       [0, 0, 0, 1]], np.float32)
+        s_im = np.full((tex, tex), 0.5, np.float32)
+        viewer.send(7, struct.pack("i", tex) + vp.tobytes(order="C")
+                    + s_im.tobytes())
+        frame(frames, 2)
+        frame(frames + 1, 1, struct.pack("i", 1) + b"smoke")
+        viewer.send(0)
+        th.join(timeout=300)
+        if errors:
+            raise errors[0]
+        if th.is_alive():
+            raise AssertionError("the insertion server did not stop")
+        res["action_ms"] = {a: holder[a].ms for a in (1, 6, 9)}
+        res["sg_fit_ms"] = fit.ms
+        res["frame_ms"] = frame_ms
+        res["frame_launches"] = frame_launches
+        res["frame_samples"] = frame_samples
+        res["raster"] = raster.shape[:2]
+        res["regular_frames"] = frames
+        res["frames"] = shaded
+        res["hw"] = (H, W)
+        res["segment_sum_launches"] = dict(seg.launches)
+        res["head_launches"] = fh.launches
+        res["insertor"] = ins
+        res["saved"] = sorted(p.name for p in (
+            Path(ins.gen_path) / "results").iterdir())
+    finally:
+        im.render_test = render_test
+        os.chdir(cwd)
+    return res
+
+
+def insert_card_vs_cpu(ckpt, ins_card, dev, downsample=0.5):
+    """One AR frame at a reduced size (64x64) on the card (the fused head
+    kernel in f32) and on the CPU (plain versions), same checkpoint, light,
+    SSDF volume and object raster: the SG frame with self-shadow and SSDF
+    shadow and the neural-BRDF SH frame with the shadow map. Returns the
+    max abs errors of the SH probe and of the two frames, and how far the
+    CPU's SG frame itself moves when its raster depths and lights are
+    scaled by 1 + 1e-7 (its conditioning)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from arnerf_tpu_torch.insert import main as im
+    from arnerf_tpu_torch.insert.envfit import trans_raw_sg
+    work = SMOKE_DIR / "insert"
+    cwd = os.getcwd()
+    os.chdir(work)      # the prep's gen_path: no ground truth is rendered
+    try:
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            ins = im.NGPInsertor(_insert_hparams(ckpt, downsample, d.type,
+                                                 "float32"))
+            ins.cfg = dataclasses.replace(ins.cfg, fused_head=True)
+            ins.global_sh = ins_card.global_sh.to(d)
+            ins.set_sg_shadow(str(work / "smoke_mesh.tar"))
+            pose = ins.dataset.poses[0]
+            center = (0.22, 0.17, 0.12)
+            bbox, raster = sphere_raster(pose, ins.K, ins.H, ins.W, center,
+                                         0.1)
+            raster = np.ascontiguousarray(raster[::-1])
+            sh = ins.generate_probe(list(center), sh_probe=True)
+            sg = trans_raw_sg(ins_card.env_opt.lgt_sgs.to(d))
+            kw = dict(model_bbox=bbox, model_bbox_last=None,
+                      model_radius=0.1, model_pos=center,
+                      model_rot_inv=np.eye(3, dtype=np.float32))
+            rgb_sg = ins.render_insert_object(
+                raster[..., :3], raster[..., 3], pose, sg, gen_shadow=1, **kw)
+            if d.type == "cpu":
+                ins.last_rgb = None
+                moved = ins.render_insert_object(
+                    raster[..., :3], raster[..., 3] * (1 + 1e-7), pose,
+                    sg * (1 + 1e-7), gen_shadow=1, **kw)
+                sensitivity = float(np.abs(moved - rgb_sg).max())
+            ins.last_rgb = None
+            rgb_sh = ins.render_insert_object(
+                raster[..., :3], raster[..., 3], pose, sh, 0.5, 0.4,
+                use_sg_base=False, sg_use_self_shadow=False, gen_shadow=2,
+                s_texSize=64, s_im=np.full((64, 64, 1), 0.5, np.float32),
+                s_VP=np.eye(4, dtype=np.float32), **kw)
+            outs.append((sh.cpu().numpy(), rgb_sg, rgb_sh))
+    finally:
+        os.chdir(cwd)
+    for rgb in outs[0][1:]:
+        if not np.isfinite(rgb).all():
+            raise AssertionError("non-finite card frame")
+    return [float(np.abs(a - b).max()) for a, b in zip(*outs)], sensitivity
+
+
+def profile_insert_frame(ins, dev):
+    """Where one serving frame's time goes (probe + SG fit, object shade,
+    dirty-rect render, SSDF shadow), called directly on the insertor the
+    server used: wall time, device busy time, idle share, top kernels."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from arnerf_tpu_torch.insert.envfit import trans_raw_sg
+    pose = ins.dataset.poses[0]
+    center = (0.25, 0.17, 0.1)
+    bbox, raster = sphere_raster(pose, ins.K, ins.H, ins.W, center, 0.1)
+    raster = np.ascontiguousarray(raster[::-1])
+    kw = dict(model_bbox=bbox, model_bbox_last=[[bbox[0][0] - 4,
+                                                 bbox[0][1] - 4], bbox[1]],
+              model_radius=0.1, model_pos=center,
+              model_rot_inv=np.eye(3, dtype=np.float32), gen_shadow=1)
+
+    def one():
+        sg = trans_raw_sg(ins.generate_probe(list(center), False))
+        return ins.render_insert_object(raster[..., :3], raster[..., 3],
+                                        pose, sg, **kw)
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = ("probe", "sg_fit", "shade", "rect", "shadow", "march",
+             "field", "composite")
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and e.name not in spans]
+    if not kernels:
+        print(f"insert profile: wall {wall_ms:.1f} ms; device time not "
+              f"measured (no device events)", flush=True)
+        return None
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f"insert profile (one frame: probe + SG fit + shade + rect render "
+          f"+ SSDF shadow, {ins.W}x{ins.H}): wall {wall_ms:.1f} ms, device "
+          f"busy {busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
+          f"{len(kernels)} device kernels/copies", flush=True)
+    for e in prof.key_averages():
+        if e.key in spans and e.device_type == DeviceType.CPU:
+            print(f"  span {e.key}: host {e.cpu_time_total / 1e3:.1f} ms, "
+                  f"device {e.device_time_total / 1e3:.1f} ms (kernel sum), "
+                  f"calls {e.count}")
+    _print_kernels(kernels, 12)
+
+
+def insert_phase(state, dev):
+    """run_insert on the card at 800x800, from the train phase's
+    checkpoint (or the random-weights one), with its checks, then the
+    card-vs-CPU frame check at 64x64."""
+    import numpy as np
+    ckpt = state.get("train_ckpt") or state.get("ckpt") \
+        or write_smoke_checkpoint(dev)
+    res = run_insert(ckpt, dev)
+    state["insert_launches"] = res["head_launches"]
+    state["insert_insertor"] = res["insertor"]
+    a1, a6, a9 = (res["action_ms"][a] for a in (1, 6, 9))
+    n = res["regular_frames"]
+    print(f"insert: checkpoint {Path(ckpt).name}, frames {res['hw']}, object "
+          f"raster {res['raster']}", flush=True)
+    print(f"insert prep seconds {res['prep_s']}; fused-head launches "
+          f"{res['launches']}; samples {res['prep_samples']}; global SH DC "
+          f"{res['global_sh_dc']}", flush=True)
+    print(f"insert serving (ms; first frame is warm-up): action 9 (SSDF "
+          f"volume, F table) {a9}; action 1 (probe + SG fit) {a1}; SG fit "
+          f"{res['sg_fit_ms']}; action 6 (shade + rect render + shadow) "
+          f"{a6}; viewer round trip per frame {res['frame_ms']}", flush=True)
+    warm = slice(1, n)     # the regular frames after the first
+    probe_ms = np.subtract(a1, res["sg_fit_ms"])
+    summary = {k: float(np.median(v[warm])) for k, v in (
+        ("action1_ms", a1), ("probe_ms", probe_ms),
+        ("sg_fit_ms", res["sg_fit_ms"]), ("action6_ms", a6),
+        ("round_trip_ms", res["frame_ms"]),
+        ("samples", res["frame_samples"]),
+        ("launches", res["frame_launches"]))}
+    print(f"insert per frame after warm-up (medians): {summary}; samples "
+          f"per frame {res['frame_samples']}; fused-head launches per frame "
+          f"{res['frame_launches']}; segment_sum launches "
+          f"{res['segment_sum_launches']}; saved {res['saved']}", flush=True)
+    state["insert_summary"] = dict(summary, prep_s=res["prep_s"])
+    if res["head_launches"] == 0 or min(res["frame_launches"]) == 0:
+        raise AssertionError("the fused-head kernel did not run in the "
+                             "insert path")
+    if any(res["segment_sum_launches"].values()):
+        raise AssertionError(f"the segment sum ran in the insert path: "
+                             f"{res['segment_sum_launches']}")
+    if n < 10:
+        raise AssertionError(f"only {n} frames")
+    if not {"0_smoke.png", "0_smoke.exr", "0_info.npz"} <= set(res["saved"]):
+        raise AssertionError(f"the saved frame is missing: {res['saved']}")
+    for f in res["frames"]:
+        if f.shape != (800, 800, 3) or not np.isfinite(f).all():
+            raise AssertionError(f"bad frame: {f.shape}, finite "
+                                 f"{np.isfinite(f).all()}")
+    errs, sensitivity = insert_card_vs_cpu(ckpt, res["insertor"], dev)
+    print(f"insert: card vs CPU at 64x64 f32: max abs err SH probe "
+          f"{errs[0]:.3g}, SG frame (self shadow + SSDF shadow) "
+          f"{errs[1]:.3g}, SH frame (neural BRDF + shadow map) "
+          f"{errs[2]:.3g} (tolerances {INSERT_TOL}); the CPU's SG frame "
+          f"moves {sensitivity:.3g} when its inputs are scaled by 1 + 1e-7",
+          flush=True)
+    if any(e > tol for e, tol in zip(errs, INSERT_TOL)):
+        raise AssertionError("card and CPU AR frames disagree")
+
+
 def main() -> int:
     try:
         import torch
@@ -825,12 +1295,15 @@ def main() -> int:
     phase("kernels", kernel_phase)
     phase("slice", slice_phase)
     phase("train", lambda: run_train(state))
+    phase("insert", lambda: insert_phase(state, dev))
     phase("real_updates", lambda: run_real_updates(state, dev))
     phase("reference", reference_phase)
     try:   # measurements, not checks: their absence fails nothing
         profile_view(state.get("ckpt") or write_smoke_checkpoint(dev), dev)
         if "trainer" in state:
             profile_train_block(state["trainer"])
+        if "insert_insertor" in state:
+            profile_insert_frame(state["insert_insertor"], dev)
     except Exception as e:   # noqa: BLE001 - the profiler is optional here
         print(f"profile: not measured ({type(e).__name__}: {e})", flush=True)
 
@@ -852,7 +1325,8 @@ def main() -> int:
         by_path = {"eval": state.get(("launches", dtype_name), 0),
                    "train": train.get("head", 0) if bf16 else 0,
                    "train_validation":
-                       state.get("train_val_launches", 0) if bf16 else 0}
+                       state.get("train_val_launches", 0) if bf16 else 0,
+                   "insert": state.get("insert_launches", 0) if bf16 else 0}
         kernels.append({
             "name": f"fused_field_head[{dtype_name}]", "route": "cuda",
             "source": "arnerf_tpu_torch/csrc/fused_head.cu",

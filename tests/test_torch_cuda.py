@@ -253,3 +253,72 @@ def test_segment_sum_wrapper_refuses_bad_inputs(dev):
         t_seg.segment_sum(idx[:10], vals, 10)
     with pytest.raises(ValueError, match="idx is on cpu"):
         t_seg.segment_sum(idx.cpu(), vals, 10)
+
+
+def test_ar_frame_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch):
+    """One AR frame through the insertor on the card (the fused head in f32,
+    every NeRF render of the frame) and on the CPU (plain versions), from
+    the same weights, occupancy, light, SSDF volume and object raster: the
+    SH probe, then the SG frame with self-shadow and the SSDF shadow. The
+    segment sum must not run (the normals' gradient is the positions').
+    The kernel takes the full-width head (16 levels x 2 features); the
+    table and the grid are small. Sum orders differ: 1e-3 absolute on the
+    probe and the normals, 5e-3 on the SG frame, whose lobes turn input
+    roundings into up to ~5e-4 (chip_smoke.py's check and tolerances)."""
+    from dataclasses import replace
+    from arnerf_tpu_torch.insert import main as im
+    from arnerf_tpu_torch.insert import sg_shadow
+    from arnerf_tpu_torch.opt import get_opts
+    from arnerf_tpu_torch.rendering import render_surface_normal
+    monkeypatch.chdir(tmp_path)
+    tab = sg_shadow.compute_fh_table(theta_num=64, lbd_num=256, zeta_num=32)
+    monkeypatch.setattr(sg_shadow, "get_fh_table", lambda: tab)
+    rng = np.random.default_rng(0)
+    np.savez(tmp_path / "pca.npz",
+             coeff=rng.normal(0, 0.02, (20 ** 3, 128)).astype(np.float32),
+             component=rng.normal(0, 0.05, (128, 74, 148)).astype(np.float32),
+             mean=np.full((1, 74, 148), 0.3, np.float32))
+    G = 32
+    g = (np.arange(G) + 0.5) / G * 2 - 1
+    X, Y, Z = np.meshgrid(g, g, g, indexing="ij")
+    occ = torch.from_numpy((np.sqrt(X ** 2 + Y ** 2 + Z ** 2) < 0.6)
+                           .astype(np.uint8).reshape(-1))
+    normals = rng.normal(size=(8, 8, 3)).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    depths = rng.uniform(0.8, 1.6, (8, 8)).astype(np.float32)
+    axes = rng.normal(size=(6, 3))
+    axes /= np.linalg.norm(axes, axis=-1, keepdims=True)
+    sgs = np.concatenate([axes, rng.uniform(2, 30, (6, 1)),
+                          rng.uniform(0.1, 1.5, (6, 3))], -1) \
+        .astype(np.float32)
+    outs = []
+    for d in ("cuda", "cpu"):
+        ins = im.NGPInsertor(get_opts([
+            "--dataset_name", "synthetic", "--downsample", "0.1875",
+            "--exp_name", f"ar_{d}", "--device", d, "--compute_dtype",
+            "float32", "--grid_size", str(G), "--log2_hashmap_size",
+            "14"]))
+        ins.cfg = replace(ins.cfg, fused_head=True)
+        ins.grid_state = ins.grid_state._replace(occ_flat=occ.to(ins.device))
+        ins.global_sh[0, 0] = 0.5
+        ins.set_sg_shadow(str(tmp_path / "pca.npz"))
+        t_fused.reset_launches()
+        t_seg.reset_launches()
+        sh = ins.generate_probe([0.0, 0.05, 0.0], sh_probe=True)
+        pose = ins.dataset.poses[1]
+        frame = ins.render_insert_object(
+            normals, depths, pose, sgs, 0.6, 0.4, model_bbox=[[6, 8],
+                                                              [14, 16]],
+            model_bbox_last=None, model_radius=0.3,
+            model_pos=[0.0, 0.05, 0.0], model_rot_inv=np.eye(3), gen_shadow=1)
+        n = render_surface_normal(ins.params, torch.rand(
+            (500, 3), generator=torch.Generator().manual_seed(1)).to(
+                ins.device) - 0.5, ins.cfg)
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert t_fused.launches > 0
+            assert t_seg.launches == {"pack": 0, "exact": 0}
+        outs.append((sh.cpu().numpy(), frame, n.cpu().numpy()))
+    assert outs[0][1].shape == (24, 24, 3) and np.isfinite(outs[0][1]).all()
+    for a, b, tol in zip(*outs, (1e-3, 5e-3, 1e-3)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol)

@@ -1,0 +1,330 @@
+"""The port's NGPServer over a real socket at 16x16: the handshake and all
+14 actions of the viewer protocol, as the external OpenGL viewer sends
+them, with a tiny insertor on the procedural scene (CPU, plain versions).
+Frames are held to finiteness and shape here; their values are held to the
+JAX package by tests/test_torch_insertor.py.
+"""
+
+import os
+import socket
+import struct
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+import arnerf_tpu_torch.datasets as t_dsets
+from arnerf_tpu_torch.datasets.synthetic import SyntheticConfig
+from arnerf_tpu_torch.insert import main as t_main
+from arnerf_tpu_torch.insert import sg_shadow as t_sg_shadow
+from arnerf_tpu_torch.insert.sg_shadow import compute_fh_table
+from arnerf_tpu_torch.models import grid_state_init
+from tests.test_torch_insertor import make_hparams, sphere_occupancy
+
+torch.set_num_threads(2)
+
+
+class FakeViewer:
+    """The viewer's side of the length-prefixed protocol."""
+
+    def __init__(self, port):
+        self.s = socket.create_connection(("127.0.0.1", port), timeout=60)
+
+    def recv(self):
+        n = int.from_bytes(self._recvn(8), "little")
+        return self._recvn(n)
+
+    def _recvn(self, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = self.s.recv(n - len(buf))
+            assert chunk, "connection closed"
+            buf += chunk
+        return buf
+
+    def send(self, payload):
+        self.s.sendall(len(payload).to_bytes(8, "little") + payload)
+
+    def action(self, aid, body=b""):
+        self.send(struct.pack("i", aid) + body)
+
+    def render(self, body=b""):
+        self.action(6, body)
+        assert struct.unpack("i", self.recv()) == (0,)  # render complete
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _sphere_maps(h, w):
+    """A normal/depth raster of a sphere filling an h x w bbox, as the
+    viewer sends it (rows bottom-up)."""
+    v, u = np.meshgrid(np.linspace(-1, 1, h), np.linspace(-1, 1, w),
+                       indexing="ij")
+    r2 = u ** 2 + v ** 2
+    z = np.sqrt(np.clip(1 - r2, 0, 1))
+    inside = r2 < 1
+    nrm = np.stack([u, v, z], -1) * inside[..., None]
+    depth = np.where(inside, 1.2 - 0.1 * z, 0.0)
+    return np.concatenate([nrm, depth[..., None]], -1).astype(np.float32)
+
+
+def test_server_protocol_all_actions(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    orig = t_dsets.dataset_dict["synthetic"]
+    monkeypatch.setitem(t_dsets.dataset_dict, "synthetic", lambda **kw: orig(
+        config=SyntheticConfig(img_wh=(16, 16), n_train=2, n_test=1,
+                               gt_samples=16), **kw))
+    # a small F table keeps the SG-SSDF load quick
+    fh = compute_fh_table(theta_num=32, lbd_num=64, zeta_num=16)
+    monkeypatch.setattr(t_sg_shadow, "get_fh_table", lambda: fh)
+    ins = t_main.NGPInsertor(make_hparams("srv"))
+    ins.grid_state = grid_state_init(ins.cfg)._replace(
+        occ_flat=torch.from_numpy(sphere_occupancy(ins.cfg.grid_size)))
+    ins.blender_trans = np.eye(4, dtype=np.float32)
+    ins.blender_scale = 1.0
+    ins.env_opt.n_iter = 3
+    ins.global_sh[0, 0] = 0.5
+
+    # the viewer's mesh assets: an SG-SSDF PCA volume (torch .tar) and a
+    # shadow-field export (.txt)
+    rng = np.random.default_rng(0)
+    torch.save({"coeff": torch.from_numpy(rng.normal(
+                    0, 0.02, (20 ** 3, 128)).astype(np.float32)),
+                "component": torch.from_numpy(rng.normal(
+                    0, 0.05, (128, 74, 148)).astype(np.float32)),
+                "mean": torch.full((1, 74, 148), 0.3)},
+               tmp_path / "mesh.tar")
+    np.savetxt(tmp_path / "mesh.txt",
+               rng.normal(2.0, 0.3, (30 ** 3, 9)), fmt="%.4f")
+    monkeypatch.setenv("VIEWER_SG_PATH", str(tmp_path))
+    monkeypatch.setenv("VIEWER_SF_PATH", str(tmp_path))
+
+    port = _free_port()
+    holder, errors = {}, []
+
+    def serve():
+        try:
+            holder["srv"] = srv = t_main.NGPServer(ins, port=port)
+            srv.run()
+        except Exception as e:   # noqa: BLE001 - reported by the test
+            errors.append(e)
+            raise
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    viewer = None
+    for _ in range(200):
+        try:
+            viewer = FakeViewer(port)
+            break
+        except OSError:
+            threading.Event().wait(0.05)
+    assert viewer is not None
+
+    # handshake: H, W, focal; blender transform; blender scale
+    h, w, f = struct.unpack("iif", viewer.recv())
+    assert (h, w) == (16, 16) and f == pytest.approx(float(ins.K[0, 0]))
+    assert np.frombuffer(viewer.recv(), np.float32).shape == (16,)
+    assert struct.unpack("f", viewer.recv()) == (1.0,)
+
+    pose_gl = np.eye(4, dtype=np.float32)
+    pose_gl[:3, 3] = [0.0, 0.1, 1.2]
+    viewer.action(2, struct.pack("f" * 16, *pose_gl.flatten()))
+    viewer.render()                  # info incomplete: plain NeRF frame
+    viewer.action(9, b"mesh")        # SG-SSDF volume: SG pipeline
+    viewer.action(14, struct.pack("fff", 0.4, 2.0, 0.1))
+    rot = np.eye(3, dtype=np.float32)
+
+    def move(mode, pos, bbox):
+        viewer.action(1, struct.pack("ifff", mode, *pos) + rot.tobytes())
+        (hs, ws), (hl, wl) = bbox
+        maps = _sphere_maps(hl - hs, wl - ws)
+        viewer.action(3, struct.pack("fiiii", 0.15, hs, ws, hl, wl)
+                      + maps.tobytes())
+
+    move(1, (0.0, 0.0, 0.0), [[4, 4], [10, 10]])
+    viewer.render()                  # SG shade, self shadow, SSDF shadow
+    move(1, (0.02, 0.0, 0.0), [[5, 4], [11, 10]])
+    viewer.render()                  # dirty rect: union of the two bboxes
+    viewer.action(10, struct.pack("i", 0))
+    viewer.action(4, struct.pack("fffff", 0.3, 0.8, 0.5, 0.4, 0.3))
+    tex = 8
+    vp = np.eye(4, dtype=np.float32)
+    viewer.action(7, struct.pack("i", tex) + struct.pack("f" * 16, *vp.ravel())
+                  + rng.uniform(0, 1, (tex, tex)).astype(np.float32).tobytes())
+    move(2, (0.0, 0.05, 0.0), [[4, 5], [10, 11]])
+    assert np.frombuffer(viewer.recv(), np.float32).shape == (3,)  # light
+    viewer.render()                  # rasterized shadow map
+    viewer.render(struct.pack("i", 1) + b"saved")
+    viewer.action(12)                # decomposition ablations
+    for _ in range(3):
+        assert struct.unpack("i", viewer.recv()) == (0,)
+    viewer.action(13, struct.pack("i", 3))
+    viewer.action(11)
+    viewer.action(8, b"mesh")        # shadow field: SH pipeline
+    viewer.action(5, struct.pack("fiiii", 0.15, 4, 4, 10, 10))
+    move(1, (0.0, 0.0, 0.02), [[4, 4], [10, 10]])
+    viewer.render()                  # neural-BRDF shade + shadow field
+    viewer.action(0)
+    th.join(timeout=120)
+    assert not th.is_alive() and not errors
+
+    srv = holder["srv"]
+    assert srv.save_idx == 3 and srv.sg_use_self_shadow is False
+    assert not srv.use_sg_base and srv.render_num == 9
+    assert tuple(srv.sh.shape) == (1, 9, 3)
+    assert float(srv.rough) == pytest.approx(0.3)
+    assert srv.insertor.sg_shadow.delta_shadow_fac == pytest.approx(2.0)
+    frame = srv.insertor.last_rgb
+    assert tuple(frame.shape) == (16, 16, 3) and bool(torch.isfinite(frame)
+                                                       .all())
+    results = tmp_path / "insert" / "generate" / "srv" / "results"
+    saved = sorted(p.name for p in (results / "cmp0").iterdir())
+    assert saved == ["0_globalSH.png", "0_info.npz", "0_nerf_SG.png",
+                     "0_nerf_no_any_shadow.exr", "0_nerf_no_any_shadow.png",
+                     "0_nerf_no_globalSH.exr", "0_nerf_no_globalSH.png",
+                     "0_nerf_no_self_shadow.exr", "0_nerf_no_self_shadow.png",
+                     "0_saved.exr", "0_saved.png"]
+    info = np.load(results / "cmp0" / "0_info.npz")
+    assert info["rgb_HDR"].shape == (16, 16, 3)
+    assert os.path.exists(tmp_path / "insert" / "generate" / "srv"
+                          / "model_data" / "mesh.npz")
+
+
+SMALL_FLAGS = ["--dataset_name", "synthetic", "--grid_size", "32",
+               "--n_levels", "4", "--log2_hashmap_size", "12"]
+
+
+def test_insert_entry_point_serves_on_cpu(tmp_path):
+    """python -m arnerf_tpu_torch.insert.main --device cpu: the prep
+    (surface cache, point cloud) and the server, which answers a viewer
+    until it sends action 0."""
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="2")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "arnerf_tpu_torch.insert.main", "--device",
+         "cpu", "--downsample", "0.125", "--exp_name", "cli",
+         "--max_pc_pts_num", "500", "--no_global_SH", *SMALL_FLAGS],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        viewer, deadline = None, time.time() + 240
+        while viewer is None and time.time() < deadline \
+                and proc.poll() is None:
+            for port in range(5001, 5006):
+                try:
+                    viewer = FakeViewer(port)
+                    break
+                except OSError:
+                    continue
+            time.sleep(0.2)
+        assert viewer is not None, proc.communicate()[0]
+        assert struct.unpack("iif", viewer.recv())[:2] == (16, 16)
+        viewer.recv()
+        viewer.recv()
+        viewer.action(2, struct.pack("f" * 16, *np.eye(4, dtype=np.float32)
+                                     .ravel()))
+        viewer.render()
+        viewer.action(0)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, out
+    gen = tmp_path / "insert" / "generate" / "cli"
+    for name in ("pc.ply", "btrans.npy", "surface.npy"):
+        assert (gen / name).exists()
+    assert "jax" not in out.lower()
+
+
+def test_insert_entry_point_refusals(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            t_main.main(SMALL_FLAGS)
+    monkeypatch.setenv("ARNERF_INSERT_BAKED", "1")
+    with pytest.raises(NotImplementedError, match="rendering_baked"):
+        t_main.main(SMALL_FLAGS + ["--device", "cpu"])
+    monkeypatch.delenv("ARNERF_INSERT_BAKED")
+    for flag in ("--use_EXR", "--use_exposure"):
+        with pytest.raises(NotImplementedError, match="tonemapper heads"):
+            t_main.main(SMALL_FLAGS + ["--device", "cpu", flag])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        t_main.main(["--dataset_name", "nerf", "--device", "cpu"])
+
+
+def test_decoders_read_the_viewer_bytes_as_the_jax_server():
+    """The byte layouts of actions 2, 3 (both raster layouts), 4, 5, 7, 10
+    and 14, the rows the viewer sends bottom-up and the GL-to-NeRF pose
+    flip, against the JAX package's NGPServer on the same buffers."""
+    import types
+    from arnerf_tpu.insert.main import NGPServer as JServer
+    rng = np.random.default_rng(1)
+    ins = types.SimpleNamespace(device=torch.device("cpu"),
+                                sg_shadow=types.SimpleNamespace())
+    ins._t = lambda x, dtype=torch.float32: torch.as_tensor(x, dtype=dtype)
+    j_srv, t_srv = object.__new__(JServer), object.__new__(t_main.NGPServer)
+    for srv in (j_srv, t_srv):
+        srv.insertor, srv.model_bbox, srv.vw = ins, None, None
+    h, w = 5, 7
+    bufs = [
+        (2, struct.pack("f" * 16, *rng.normal(size=16))),
+        (3, struct.pack("fiiii", 0.2, 3, 4, 3 + h, 4 + w)
+         + rng.normal(size=h * w * 4).astype(np.float32).tobytes()),
+        (4, struct.pack("fffff", 0.3, 0.8, 0.5, 0.4, 0.3)),
+        (3, struct.pack("fiiii", 0.25, 1, 2, 1 + h, 2 + w)
+         + rng.normal(size=h * w * 9).astype(np.float32).tobytes()),
+        (5, struct.pack("fiiii", 0.3, 2, 3, 9, 11)),
+        (7, struct.pack("i", 4) + struct.pack("f" * 16, *rng.normal(size=16))
+         + rng.normal(size=16).astype(np.float32).tobytes()),
+        (10, struct.pack("i", 1)),
+        (14, struct.pack("fff", 0.5, 1.5, 0.2)),
+    ]
+    names = {2: "cam_pose_decoder", 3: "map_decoder", 4: "material_decoder",
+             5: "shadow_field_decoder", 7: "shadow_map_decoder",
+             10: "sg_use_sshadow", 14: "sg_shadow_facs_decoder"}
+    for action, buf in bufs:
+        for srv in (j_srv, t_srv):
+            getattr(srv, names[action])(buf)
+            if action == 14:     # the factors land on the shared object
+                ins.got = (ins.sg_shadow.delta_angle_decay_fac,
+                           ins.sg_shadow.delta_shadow_fac,
+                           ins.sg_shadow.delta_self_shadow_fac)
+        for attr in ("cam_pose", "normal", "depth", "albedo", "metal",
+                     "rough", "model_radius", "model_bbox", "model_bbox_last",
+                     "s_texSize", "s_VP", "s_im", "sg_use_self_shadow"):
+            a, b = getattr(t_srv, attr, None), getattr(j_srv, attr, None)
+            if b is None:
+                assert a is None, attr
+                continue
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                          err_msg=f"{attr} after {action}")
+    assert ins.got == pytest.approx((0.5, 1.5, 0.2))
+
+
+def test_png_and_exr_files_read_back(tmp_path):
+    """image_io's PNG (8-bit RGB) and OpenEXR (uncompressed FLOAT RGB)
+    writers, read back by the JAX package's native decoder (libpng and
+    OpenEXR's RGBA interface, which reads half floats: 1e-3 relative)."""
+    from arnerf_tpu.native import load_images_batch
+    from arnerf_tpu_torch.image_io import write_exr, write_png
+    rng = np.random.default_rng(2)
+    hdr = rng.uniform(0, 4, (6, 9, 3)).astype(np.float32)
+    ldr = rng.integers(0, 256, (6, 9, 3)).astype(np.uint8)
+    write_exr(str(tmp_path / "a.exr"), hdr)
+    write_png(str(tmp_path / "a.png"), ldr)
+    got = load_images_batch([str(tmp_path / "a.exr"),
+                             str(tmp_path / "a.png")], (9, 6))
+    assert got is not None, "native decoder unavailable"
+    np.testing.assert_allclose(got[0].reshape(6, 9, 3), hdr, rtol=1e-3,
+                               atol=0)
+    np.testing.assert_allclose(got[1].reshape(6, 9, 3), ldr / 255.0,
+                               rtol=0, atol=1e-6)

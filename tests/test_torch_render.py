@@ -191,3 +191,45 @@ def test_eval_refuses_cuda_without_a_card_and_unported_flags(tmp_path):
     with pytest.raises(SystemExit, match="not ported"):
         t_eval.main(["--dataset_name", "nerf", "--device", "cpu",
                      "--ckpt_path", "x.npz"])
+
+
+@pytest.mark.parametrize("fast,with_im", [(True, False), (False, False),
+                                          (False, True)])
+def test_render_test_backgrounds_match_jax(fast, with_im):
+    """render_test's SH environment background (evaluated along each ray,
+    clamped positive) in both branches; an image background wins where
+    both are given (arnerf_tpu/rendering.py:600-608,641-648)."""
+    j_cfg, j_params, j_state, t_cfg, t_params, t_state = _scene(0.5)
+    ro, rd = _view(0.5, img=16)
+    rng = np.random.default_rng(0)
+    sh = rng.normal(0.2, 0.3, (9, 3)).astype(np.float32)
+    im = rng.uniform(0, 1, (ro.shape[0], 3)).astype(np.float32) \
+        if with_im else None
+    kw = dict(T_threshold=1e-2, max_samples=96, fast=fast)
+    j_out = j_render(j_params, j_state, jnp.asarray(ro), jnp.asarray(rd),
+                     j_cfg, sh_bkg=jnp.asarray(sh),
+                     im_bkg=None if im is None else jnp.asarray(im), **kw)
+    t_out = render_test(t_params, t_state, torch.from_numpy(ro),
+                        torch.from_numpy(rd), t_cfg,
+                        sh_bkg=torch.from_numpy(sh),
+                        im_bkg=None if im is None else torch.from_numpy(im),
+                        **kw)
+    _assert_same_render(t_out, j_out)
+    plain = render_test(t_params, t_state, torch.from_numpy(ro),
+                        torch.from_numpy(rd), t_cfg, **kw)
+    assert float((t_out["rgb"] - plain["rgb"]).abs().max()) > 1e-2
+
+
+def test_render_surface_rgb_matches_jax():
+    from arnerf_tpu.rendering import render_surface_rgb as j_surface_rgb
+    from arnerf_tpu_torch.rendering import render_surface_rgb
+    j_cfg, j_params, _, t_cfg, t_params, _ = _scene(0.5, fused_head=False)
+    rng = np.random.default_rng(1)
+    pts = rng.uniform(-0.5, 0.5, (4, 5, 3)).astype(np.float32)
+    dirs = rng.normal(size=(4, 5, 3)).astype(np.float32)
+    got = render_surface_rgb(t_params, torch.from_numpy(pts),
+                             torch.from_numpy(dirs), t_cfg)
+    assert tuple(got.shape) == (4, 5, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_surface_rgb(
+        j_params, jnp.asarray(pts), jnp.asarray(dirs), j_cfg)),
+        atol=TOL, rtol=0)

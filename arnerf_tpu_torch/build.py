@@ -1,11 +1,12 @@
-"""Build the port's CUDA kernels at first use.
+"""Build the port's native code at first use.
 
-Each source `csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared
-library with a plain C interface, loaded with ctypes. Libraries go to
-`build/arnerf_tpu_torch/` at the root of the checkout, named by a digest of
-the source and flags, so an edited source is never served a stale build.
-Importing this module builds nothing; a missing nvcc or a failed build
-raises.
+Each CUDA source `csrc/<name>.cu` is compiled by nvcc for sm_90a, and each
+host source `csrc/<name>.cpp` (the image decoder) by the host C++ compiler
+($CXX, else `c++`), into a shared library with a plain C interface, loaded
+with ctypes. Libraries go to `build/arnerf_tpu_torch/` at the root of the
+checkout, named by a digest of the source and flags, so an edited source is
+never served a stale build. Importing this module builds nothing; a missing
+compiler or a failed build raises.
 """
 
 import ctypes
@@ -19,8 +20,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "arnerf_tpu_torch"
 KERNEL_SOURCES = ("fused_head", "segment_sum")
+HOST_SOURCES = ("dataio",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
 
 _loaded = {}
 
@@ -38,18 +41,34 @@ def nvcc_path() -> str:
                        f"port's CUDA kernels cannot be built")
 
 
+def host_compiler() -> str:
+    """$CXX, else `c++` from PATH."""
+    cxx = os.environ.get("CXX") or shutil.which("c++")
+    if not cxx:
+        raise RuntimeError("no host C++ compiler ($CXX unset and no c++ on "
+                           "PATH): the port's image decoder cannot be built")
+    return cxx
+
+
+def _source(name: str):
+    """(source path, compiler flags) of `name`: host C++ or CUDA."""
+    if name in HOST_SOURCES:
+        return CSRC / f"{name}.cpp", HOST_FLAGS
+    return CSRC / f"{name}.cu", NVCC_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src, flags = _source(name)
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names=KERNEL_SOURCES) -> dict:
-    """Compile every named source not built yet, all nvcc processes started
-    together. Returns {name: seconds} for what was compiled; the ptxas
-    report (registers, shared memory, spills) is kept beside each library
-    as `<library>.log`."""
+    """Compile every named source not built yet, all compiler processes
+    started together. Returns {name: seconds} for what was compiled; the
+    compiler's output (for nvcc the ptxas report: registers, shared memory,
+    spills) is kept beside each library as `<library>.log`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     t0 = time.perf_counter()
@@ -58,8 +77,9 @@ def build(names=KERNEL_SOURCES) -> dict:
         if out.exists():
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        src, flags = _source(name)
+        compiler = host_compiler() if name in HOST_SOURCES else nvcc_path()
+        cmd = [compiler, *flags, "-o", str(tmp), str(src)]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)
@@ -69,16 +89,17 @@ def build(names=KERNEL_SOURCES) -> dict:
         seconds[name] = time.perf_counter() - t0
         out.with_suffix(".so.log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            failed.append(f"{name}: {proc.args[0]} exit "
+                          f"{proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native build failed:\n" + "\n".join(failed))
     return seconds
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed."""
+    """The loaded library of source `name`, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
         path = library_path(name)

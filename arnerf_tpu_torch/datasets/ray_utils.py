@@ -42,8 +42,68 @@ def get_rays(directions, c2w):
     return rays_o, rays_d
 
 
+def axisangle_to_R(v):
+    """Axis-angle (B, 3) tensor -> rotation matrices (B, 3, 3).
+
+    reference: datasets/ray_utils.py:74-100 (Rodrigues via skew matrix).
+    """
+    zero = torch.zeros_like(v[:, :1])
+    skew = torch.stack([
+        torch.cat([zero, -v[:, 2:3], v[:, 1:2]], 1),
+        torch.cat([v[:, 2:3], zero, -v[:, 0:1]], 1),
+        torch.cat([-v[:, 1:2], v[:, 0:1], zero], 1)], dim=1)
+    # sqrt(sum+eps) keeps the derivative finite at v = 0 (plain norm has a
+    # NaN gradient there, which poisons --optimize_ext's zero-initialized
+    # deltas on the very first step)
+    norm = torch.sqrt(torch.sum(v * v, dim=1) + 1e-14)[:, None, None]
+    eye = torch.eye(3, dtype=v.dtype, device=v.device)[None]
+    return (eye + torch.sin(norm) / norm * skew
+            + (1 - torch.cos(norm)) / norm ** 2 * (skew @ skew))
+
+
 def normalize(v):
     return v / np.linalg.norm(v)
+
+
+def average_poses(poses, pts3d=None):
+    """reference: datasets/ray_utils.py:108-147."""
+    center = pts3d.mean(0) if pts3d is not None else poses[..., 3].mean(0)
+    z = normalize(poses[..., 2].mean(0))
+    y_ = poses[..., 1].mean(0)
+    x = normalize(np.cross(y_, z))
+    y = np.cross(z, x)
+    return np.stack([x, y, z, center], 1)
+
+
+def center_poses(poses, pts3d=None):
+    """reference: datasets/ray_utils.py:150-178."""
+    pose_avg = average_poses(poses, pts3d)
+    pose_avg_homo = np.eye(4)
+    pose_avg_homo[:3] = pose_avg
+    pose_avg_inv = np.linalg.inv(pose_avg_homo)
+    last_row = np.tile(np.array([0, 0, 0, 1.0]), (len(poses), 1, 1))
+    poses_homo = np.concatenate([poses, last_row], 1)
+    poses_centered = (pose_avg_inv @ poses_homo)[:, :3]
+    if pts3d is not None:
+        pts3d_centered = pts3d @ pose_avg_inv[:, :3].T + pose_avg_inv[:, 3:].T
+        return poses_centered, pts3d_centered, pose_avg
+    return poses_centered, pose_avg
+
+
+def create_spheric_poses(radius, mean_h, n_poses=120):
+    """Circular test trajectory. reference: datasets/ray_utils.py:180-215."""
+    def spheric_pose(theta, phi, radius):
+        trans_t = np.array([[1, 0, 0, 0], [0, 1, 0, 2 * mean_h],
+                            [0, 0, 1, -radius]])
+        rot_phi = np.array([[1, 0, 0], [0, np.cos(phi), -np.sin(phi)],
+                            [0, np.sin(phi), np.cos(phi)]])
+        rot_theta = np.array([[np.cos(theta), 0, -np.sin(theta)], [0, 1, 0],
+                              [np.sin(theta), 0, np.cos(theta)]])
+        c2w = rot_theta @ rot_phi @ trans_t
+        return np.array([[-1, 0, 0], [0, 0, 1], [0, 1, 0]]) @ c2w
+
+    return np.stack([spheric_pose(th, -np.pi / 12, radius)
+                     for th in np.linspace(0, 2 * np.pi, n_poses + 1)[:-1]], 0)
 
 
 def look_at_pose(eye, target=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0)):

@@ -18,8 +18,10 @@ the renders inside them open the render layers' spans.
 
 Not ported, refused with an error: the baked-field programs
 (ARNERF_INSERT_BAKED=1; they need rendering_baked.py), --use_EXR and
---use_exposure (they need the HDR tonemapper heads), the amortised SG
-fitter (EnvTrainer, generate_envmaps, load_or_train_envmaps).
+--use_exposure (they need the HDR tonemapper heads), the EXR datasets,
+the amortised SG fitter (EnvTrainer, generate_envmaps,
+load_or_train_envmaps). The scene is any dataset the port loads:
+synthetic, nerf, nsvf, nerfpp or colmap with --root_dir.
 """
 
 import glob
@@ -85,17 +87,16 @@ class NGPInsertor:
     there, so the parity tests pass both packages the same directions."""
 
     def __init__(self, hparams, generator=None):
-        from ..datasets import dataset_dict
+        from ..datasets import dataset_dict, unported_reason
         from ..device import resolve_device
         from ..models import grid_state_init, ngp_init
         from ..opt import model_config
         from ..training.ckpt import load_ckpt
 
         refuse_unported(hparams)
-        if hparams.dataset_name not in dataset_dict:
-            raise NotImplementedError(
-                f"dataset {hparams.dataset_name!r} is not ported to "
-                f"arnerf_tpu_torch yet (have: {sorted(dataset_dict)})")
+        reason = unported_reason(hparams.dataset_name)
+        if reason:
+            raise NotImplementedError(reason)
         self.hparams = hparams
         self.device = dev = resolve_device(hparams.device)
         self.generator = generator if generator is not None else \
@@ -602,14 +603,13 @@ class NGPServer:
         self.rough = 0.2
         self.albedo = None
         self.dt = 0
-        self.vw = None
-        self.display = os.environ.get("DISPLAY") is not None
+        # record=True: every frame as a PNG under <gen_path>/record/ (the
+        # reference writes an XVID video with OpenCV; the port has no video
+        # encoder and no window toolkit, so it opens no on-screen window)
+        self.record_dir = None
         if record:
-            import cv2
-            video_path = os.path.join(insertor.gen_path, "video.avi")
-            fourcc = cv2.VideoWriter_fourcc(*"XVID")
-            self.vw = cv2.VideoWriter(video_path, fourcc, 10.0,
-                                      (insertor.W, insertor.H), True)
+            self.record_dir = os.path.join(insertor.gen_path, "record")
+            os.makedirs(self.record_dir, exist_ok=True)
 
     def _t(self, x):
         return self.insertor._t(x)
@@ -859,19 +859,11 @@ class NGPServer:
             pass
 
     def _display(self, rgb):
-        """Recording (record=True) and an on-screen window need OpenCV."""
-        if self.vw is not None:
-            import cv2
-            self.vw.write(cv2.cvtColor((np.clip(rgb, 0, 1) * 255)
-                                       .astype("uint8"), cv2.COLOR_RGB2BGR))
-        if self.display:
-            try:
-                import cv2
-                cv2.imshow("render", cv2.cvtColor(
-                    np.asarray(rgb, np.float32), cv2.COLOR_RGB2BGR))
-                cv2.waitKey(1)
-            except Exception:   # noqa: BLE001 - no OpenCV or no display
-                self.display = False
+        """Record the frame (record=True) as the next numbered PNG."""
+        if self.record_dir is not None:
+            write_png(os.path.join(self.record_dir,
+                                   f"frame_{self.render_num:05d}.png"),
+                      (np.clip(_numpy(rgb), 0, 1) * 255).astype(np.uint8))
 
     def run(self):
         while True:
@@ -882,10 +874,6 @@ class NGPServer:
             if action == 0:
                 break
             self.act_dict[action](buf[4:])
-
-    def __del__(self):
-        if self.vw is not None:
-            self.vw.release()
 
 
 def main(argv=None):

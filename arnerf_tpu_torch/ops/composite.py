@@ -10,12 +10,19 @@ post-update transmittance drops to or below the threshold.
 samples are contiguous: a per-ray prefix sum is a global cumsum minus the
 value at the ray's segment start (per-ray totals are summed ray by ray,
 see `_ray_totals`), and autograd derives the backward that the reference
-writes by hand.
+writes by hand. That prefix sum runs in float64 over optical depths capped
+at SD_CAP (see `composite_train`).
 """
 
 from typing import NamedTuple
 
 import torch
+
+# the largest optical depth a sample enters the transmittance prefix sum
+# with: exp(-SD_CAP) is 0 in float32 (as is exp(-x) for x > 104), so every
+# transmittance and gradient keeps its float32 value, and an infinite
+# density no longer turns the difference of two sums into inf - inf
+SD_CAP = 1e4
 
 
 class CompositeResults(NamedTuple):
@@ -50,11 +57,21 @@ def _ray_totals(x, ray_idx, valid, n_rays: int):
 def composite_train(sigmas, rgbs, deltas, ts, ray_idx, valid, ray_start,
                     counts, T_threshold: float) -> CompositeResults:
     """sigmas (M,), rgbs (M, 3), deltas/ts (M,), segment layout from the
-    training marchers. Differentiable in sigmas and rgbs."""
+    training marchers. Differentiable in sigmas and rgbs.
+
+    The JAX package differences a float32 cumsum over the whole batch.
+    Where densities are large, as an unbounded scene's far samples are
+    (exp stepping makes deltas long), that running sum reaches 1e7 and
+    more, its rounding error reaches tens, and a segment's difference
+    comes out negative: a transmittance e^40 or inf, inf x 0 = NaN. The
+    port takes the prefix sum in float64 (rounding 2^-29 of float32's), of
+    depths capped at SD_CAP, then returns to float32."""
     fvalid = valid.to(sigmas.dtype)
     sd = sigmas * deltas * fvalid                  # optical depth per sample
-    sd_cum = torch.cumsum(sd, dim=0)
-    sd_excl = sd_cum - sd - _segment_base(sd_cum, ray_start, ray_idx)
+    sd64 = torch.clamp(sd, max=SD_CAP).double()
+    sd_cum = torch.cumsum(sd64, dim=0)
+    sd_excl = (sd_cum - sd64 - _segment_base(sd_cum, ray_start, ray_idx)) \
+        .to(sd.dtype)
     T_before = torch.exp(-sd_excl)
     alpha = 1.0 - torch.exp(-sd)
     included = (T_before > T_threshold) & valid

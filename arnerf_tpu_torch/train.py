@@ -1,6 +1,6 @@
-"""Training CLI (port of the repository's train.py:26-181):
+"""Training CLI (port of the repository's train.py:26-203):
 
-  python -m arnerf_tpu_torch.train --dataset_name synthetic \
+  python -m arnerf_tpu_torch.train --dataset_name nerf --root_dir <scene> \
       --exp_name exp [--num_epochs 30] [--device cpu]
 
 Same flags and outputs as the JAX CLI: checkpoints under
@@ -12,10 +12,12 @@ turbo map; the port depends on no image library).
 
 Runs on the card by default, with the fused field-head kernel, bf16 field
 evaluation and stochastic corners (train.py:64-75); --device cpu runs the
-plain versions in float32 with exact corners. Flags whose modules are not
-ported yet are refused: --optimize_ext, --use_exposure, --use_EXR,
---num_gpus > 1, --model_parallel > 1, --eval_lpips and the datasets other
-than synthetic.
+plain versions in float32 with exact corners. The datasets are synthetic,
+nerf, nsvf, nerfpp and colmap. Flags whose modules are not ported yet are
+refused: --optimize_ext, --use_exposure, --use_EXR, --num_gpus > 1,
+--model_parallel > 1, --eval_lpips and the EXR datasets (colmap_exr,
+colmap_real_exr, myblender, rtmv). Synthetic-NSVF runs end with the JAX
+CLI's no-mp4-backend message: the port writes no video.
 """
 
 import json
@@ -30,7 +32,7 @@ from .opt import get_opts, model_config
 
 
 def _refuse_unported(hparams):
-    from .datasets import dataset_dict
+    from .datasets import unported_reason
     for flag in ("optimize_ext", "use_exposure", "use_EXR", "eval_lpips"):
         if getattr(hparams, flag):
             raise SystemExit(f"--{flag} is not ported to arnerf_tpu_torch "
@@ -39,9 +41,9 @@ def _refuse_unported(hparams):
         raise SystemExit("--num_gpus > 1 and --model_parallel > 1 (DDP, "
                          "sharded tables) are not ported to arnerf_tpu_torch "
                          "yet; use the JAX train.py")
-    if hparams.dataset_name not in dataset_dict:
-        raise SystemExit(f"dataset {hparams.dataset_name!r} is not ported to "
-                         f"arnerf_tpu_torch yet (have: {sorted(dataset_dict)})")
+    reason = unported_reason(hparams.dataset_name)
+    if reason:
+        raise SystemExit(reason)
 
 
 def depth2img(depth):
@@ -141,6 +143,12 @@ def main(argv=None, callback=None) -> dict:
     if psnrs:
         print(f"test/psnr={np.mean(psnrs):.3f} "
               f"test/ssim={np.mean(ssims):.4f}", flush=True)
+    # rgb/depth videos for Synthetic-NSVF (train.py:183-203): the port has
+    # no mp4 encoder, so it takes the JAX CLI's no-backend branch
+    if not hparams.no_save_test and hparams.dataset_name == "nsvf" \
+            and "Synthetic" in hparams.root_dir:
+        print("video export skipped (no mp4 backend: arnerf_tpu_torch "
+              "writes no video)", flush=True)
     return {"trainer": trainer, "psnr": psnrs, "ssim": ssims,
             "ckpt_dir": ckpt_dir}
 

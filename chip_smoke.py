@@ -4,9 +4,10 @@
     python3 chip_smoke.py        # from the root of a checkout
 
 Phases (all run, even after a failure; any failure exits non-zero):
-  1. build     - compile every CUDA kernel from csrc/ with nvcc (sm_90a),
-                 all nvcc processes started together; fails if ptxas
-                 reports a spill.
+  1. build     - compile every CUDA kernel from csrc/ with nvcc (sm_90a)
+                 and the host image decoder (csrc/dataio.cpp) with c++, all
+                 compilers started together; fails if ptxas reports a
+                 spill.
   2. kernels   - each kernel against its plain PyTorch version on the card,
                  timed beside its bound and a library yardstick: the fused
                  head (forward, and its autograd gradient at 2^18 rows) and
@@ -46,6 +47,24 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  a small size, on the card (kernels) and on the CPU (plain
                  versions) must agree; the compositing's per-ray totals
                  of empty rays must be exactly zero on the card.
+  captures - training and evaluation on captures on disk. The script writes
+                 two captures of the procedural scene under
+                 build/arnerf_tpu_torch/smoke/captures/ (datasets/captures.py,
+                 rendered on the card): a Blender-format scene (100 train and
+                 8 test RGBA PNGs at 800x800, alpha = opacity, rows filtered
+                 with types 0-4 in rotation) and a COLMAP-format scene
+                 (sparse/0/*.bin, PINHOLE, 64 PNGs at 1240x824 on black,
+                 points on the analytic surface). The loaders must decode
+                 every view to the pixels written, after their alpha blend,
+                 within 1e-6. The train entry point then runs 1,000 steps on
+                 each: nerf at the defaults (batch 8192), then eval with
+                 --grid_vis, --cam_vis and --mesh (train PSNR > 19 dB,
+                 validation > 17 dB, all three files, > 0 faces); colmap with
+                 the mip-NeRF 360 outdoor flags (--scale 16: 6 cascades, exp
+                 stepping; batch 4096, lr 2e-2), then eval (a finite loss
+                 at every block, validation > 17 dB). Both kernels must run
+                 on both training paths. One f32 training step of the
+                 trained scale-16 model must agree card vs CPU to 1e-5.
 Then torch.profiler passes over one bf16 view, one post-warmup training
 block and one AR frame print where their time goes (measurements only;
 they fail nothing).
@@ -82,6 +101,17 @@ INSERT_TOL = (1e-3, 5e-3, 1e-3)
 TRAIN_ARGV = ["--dataset_name", "synthetic", "--downsample", "3.125",
               "--num_epochs", "1", "--batch_size", "8192",
               "--exp_name", "smoke"]
+CAPTURES_DIR = SMOKE_DIR / "captures"
+BLENDER_VIEWS = (100, 8)        # train, test: the reference's Blender split
+BLENDER_WH = 800                # the Blender scenes' size (datasets/nerf.py)
+COLMAP_VIEWS = 64               # every 8th is a test view
+COLMAP_WH = (1240, 824)         # about mip-NeRF 360 at --downsample 0.25
+CAPTURE_ARGV = {
+    "nerf": ["--dataset_name", "nerf", "--num_epochs", "1",
+             "--batch_size", "8192"],
+    # mip-NeRF 360's outdoor flags (benchmarking/benchmark_mipnerf360.sh)
+    "colmap": ["--dataset_name", "colmap", "--scale", "16", "--batch_size",
+               "4096", "--lr", "2e-2", "--num_epochs", "1"]}
 
 
 def _time_ms(fn, iters):
@@ -417,22 +447,22 @@ def run_slice(ckpt, dtype_name):
     return launches
 
 
-def run_train(state):
-    """The train entry point for one 1,000-step epoch at full width, then
-    the eval entry point on its checkpoint at 800x800."""
+def train_entry(argv, work, label):
+    """The train entry point with `argv` in `work`, every launch counter
+    set to 0 just before: returns its result, the counters at its last
+    training block, each block's metrics and the launches of its test-split
+    validation."""
     import numpy as np
     import torch
-    from arnerf_tpu_torch import eval as port_eval
     from arnerf_tpu_torch import train as port_train
     from arnerf_tpu_torch.ops import fused_head as fh
     from arnerf_tpu_torch.ops import segments as seg
-    work = SMOKE_DIR / "train"
     work.mkdir(parents=True, exist_ok=True)
-    counts = {}
+    counts, blocks = {}, []
 
     def on_block(step, metrics):    # the counters as training leaves them
         counts.update(step=step, head=fh.launches, **seg.launches)
-        counts["last"] = {k: float(v) for k, v in metrics.items()}
+        blocks.append({k: float(v) for k, v in metrics.items()})
 
     cwd = os.getcwd()
     os.chdir(work)
@@ -440,21 +470,16 @@ def run_train(state):
         fh.reset_launches()
         seg.reset_launches()
         t0 = time.perf_counter()
-        res = port_train.main(TRAIN_ARGV, callback=on_block)
+        res = port_train.main(argv, callback=on_block)
         torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
+        res["seconds"] = time.perf_counter() - t0
         # training's launches stop at its last block; the entry point's
         # test-split validation renders after it
-        state["train_launches"] = {k: counts[k]
-                                   for k in ("head", "pack", "exact")}
-        state["train_val_launches"] = fh.launches - counts["head"]
-        ckpt = str(work / res["ckpt_dir"] / "epoch=0.npz")
-        state["train_ckpt"] = ckpt
+        res["val_launches"] = fh.launches - counts["head"]
+        res["ckpt"] = str(work / res["ckpt_dir"] / "epoch=0.npz")
     finally:
         os.chdir(cwd)
     trainer = res["trainer"]
-    state["trainer"] = trainer
-    steps = counts["step"]
     tc = trainer.tc
     anneal = tc.stoch_anneal_frac * tc.total_steps
     ms = {"warmup": [], "stochastic": [], "exact": []}
@@ -462,29 +487,58 @@ def run_train(state):
         kind = "warmup" if warmup else \
             "exact" if first >= anneal else "stochastic"
         ms[kind].append(1e3 * t / tc.update_interval)
-    post = ms["stochastic"] + ms["exact"]
-    last = counts.pop("last")
-    print(f"train: {steps} steps in {train_s:.1f} s (entry point, incl. "
-          f"data and validation); median ms/step "
+    res.update(counts=counts, blocks=blocks, ms=ms,
+               ms_per_step=float(np.median(ms["stochastic"] + ms["exact"])))
+    steps = counts["step"]
+    print(f"{label}: {steps} steps in {res['seconds']:.1f} s (entry point, "
+          f"incl. data and validation); median ms/step "
           f"{ {k: float(np.median(v)) for k, v in ms.items() if v} }, after "
-          f"warmup {np.median(post):.2f}; last block {last}", flush=True)
-    print(f"train: per-block ms/step "
+          f"warmup {res['ms_per_step']:.2f}; last block {blocks[-1]}",
+          flush=True)
+    print(f"{label}: per-block ms/step "
           f"{ {k: [round(x, 2) for x in v] for k, v in ms.items()} }",
           flush=True)
-    print(f"train: launches per step segment_sum[pack] "
+    print(f"{label}: launches per step segment_sum[pack] "
           f"{counts['pack'] / steps} segment_sum[exact] "
           f"{counts['exact'] / steps} fused_head {counts['head'] / steps} "
           f"(totals {counts})", flush=True)
-    print(f"train: test split at 400x400 PSNR {res['psnr']} SSIM "
-          f"{res['ssim']} fused-head launches "
-          f"{state['train_val_launches']}", flush=True)
+    print(f"{label}: test split PSNR {res['psnr']} SSIM {res['ssim']} "
+          f"fused-head launches {res['val_launches']}", flush=True)
+    return res
+
+
+def eval_entry(argv, label):
+    """The eval entry point with `argv`, the head's counter set to 0 just
+    before; returns its result with the launches and ms/view added."""
+    import torch
+    from arnerf_tpu_torch import eval as port_eval
+    from arnerf_tpu_torch.ops import fused_head as fh
     fh.reset_launches()
-    val = port_eval.main(["--dataset_name", "synthetic", "--downsample",
-                          "6.25", "--ckpt_path", ckpt])
-    print(f"train: checkpoint through eval at 800x800: PSNR {val['psnr']} "
-          f"FPS {val['fps']} samples {val['total_samples']} fused-head "
-          f"launches {fh.launches}", flush=True)
-    state["train_summary"] = {"ms_per_step": float(np.median(post)),
+    val = port_eval.main(argv)
+    torch.cuda.synchronize()
+    val["launches"] = fh.launches
+    views = len(val["seconds_per_view"])
+    val["ms_per_view"] = [1e3 * t for t in val["seconds_per_view"]]
+    print(f"{label}: eval at {val['img_wh']}: PSNR {val['psnr']} FPS "
+          f"{val['fps']} ms/view {val['ms_per_view']} samples/view "
+          f"{val['total_samples']} fused-head launches {fh.launches} "
+          f"({fh.launches / views} per view)", flush=True)
+    return val
+
+
+def run_train(state):
+    """The train entry point for one 1,000-step epoch at full width, then
+    the eval entry point on its checkpoint at 800x800."""
+    import numpy as np
+    res = train_entry(TRAIN_ARGV, SMOKE_DIR / "train", "train")
+    counts, last = res["counts"], res["blocks"][-1]
+    state["train_launches"] = {k: counts[k] for k in ("head", "pack", "exact")}
+    state["train_val_launches"] = res["val_launches"]
+    state["train_ckpt"] = res["ckpt"]
+    state["trainer"] = res["trainer"]
+    val = eval_entry(["--dataset_name", "synthetic", "--downsample", "6.25",
+                      "--ckpt_path", res["ckpt"]], "train")
+    state["train_summary"] = {"ms_per_step": res["ms_per_step"],
                               "train_psnr": last["psnr"],
                               "val_psnr": float(np.mean(val["psnr"]))}
     if not np.isfinite(last["loss"]):
@@ -583,26 +637,78 @@ def profile_train_block(trainer):
     _print_kernels(kernels, 10)
 
 
+def _tree_to(tree, d):
+    """A copy of a parameter tree (dicts, lists, tensors) on device d,
+    each leaf requiring grad."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, d) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, d) for v in tree)
+    return tree.detach().to(d).clone().requires_grad_(True)
+
+
+def step_card_vs_cpu(label, cfg, tc, params, occ, ro, rd, gt, noise,
+                     exp_step_factor, dev, sample_tol=0, grad_tol=1e-4):
+    """One f32 training step (exact corners, sort marching) from the same
+    weights and rays on the card (the segment-sum kernel) and on the CPU
+    (plain versions). The loss agrees to 1e-5 and each gradient leaf to
+    grad_tol of its largest entry (sum order: atomics, cuBLAS); the sample
+    totals differ by at most sample_tol of the CPU's, and with sample_tol
+    0 every ray's count is equal. Returns the loss's relative
+    difference."""
+    import torch
+    from arnerf_tpu_torch.models import grid_state_init
+    from arnerf_tpu_torch.ops import segments as seg
+    from arnerf_tpu_torch.training import trainer as tr
+    from arnerf_tpu_torch.training.ckpt import tree_leaves
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        p = _tree_to(params, d)
+        state = grid_state_init(cfg, d)._replace(occ_flat=occ.to(d))
+        seg.reset_launches()
+        loss, res = tr.step_loss(p, state, ro.to(d), rd.to(d), gt.to(d),
+                                 noise=noise.to(d), seed=None, rgb_bg=None,
+                                 cfg=cfg, tc=tc,
+                                 exp_step_factor=exp_step_factor,
+                                 seg_cap=tc.seg_cap)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        out[d.type] = (float(loss.detach()), [g.cpu() for g in grads],
+                       int(res["rm_samples"]), res["counts"].cpu(),
+                       dict(seg.launches))
+    (lg, gg, rg, cg, kl), (lc, gc, rc, cc, _) = out["cuda"], out["cpu"]
+    errs = [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            for a, b in zip(gg, gc)]
+    rel = abs(lg - lc) / abs(lc)
+    rays_off = int((cg != cc).sum())
+    print(f"{label}: one f32 training step (scale {cfg.scale}, "
+          f"{cfg.cascades} cascades), card vs CPU: loss {lg} vs {lc} "
+          f"(relative {rel:.3g}), gradient errors relative to each leaf's "
+          f"largest entry {errs}, samples {rg} vs {rc} ({rays_off} rays' "
+          f"counts differ), card segment_sum launches {kl}", flush=True)
+    if abs(rg - rc) > sample_tol * rc or (sample_tol == 0 and rays_off):
+        raise AssertionError(f"{label}: card and CPU sample sets differ")
+    if rel > 1e-5 or max(errs) > grad_tol:
+        raise AssertionError(f"{label}: card and CPU training steps "
+                             f"disagree")
+    if kl["exact"] != 1:
+        raise AssertionError(f"{label}: the card's step did not launch the "
+                             f"exact segment sum once: {kl}")
+    return rel
+
+
 def reference_train_step(dev):
-    """One f32 training step at a small size (4 levels, 2^12 table, 32^3
-    grid, 512 rays, exact corners, pooled sort marching): the card (the
-    segment-sum kernel) against the CPU (plain versions) on the same
-    inputs. Sample counts must be equal; the loss agrees to 1e-5 and each
-    gradient leaf to 1e-4 of its largest entry (sum order: atomics,
-    cuBLAS)."""
+    """step_card_vs_cpu at a small size (4 levels, 2^12 table, 32^3 grid,
+    512 rays of the synthetic scene, random colours)."""
     import numpy as np
     import torch
     from arnerf_tpu_torch.datasets.ray_utils import get_rays
     from arnerf_tpu_torch.datasets.synthetic import (SyntheticConfig,
                                                      SyntheticDataset,
                                                      analytic_occupancy)
-    from arnerf_tpu_torch.models import NGPConfig, grid_state_init, ngp_init
-    from arnerf_tpu_torch.ops import segments as seg
+    from arnerf_tpu_torch.models import NGPConfig, ngp_init
     from arnerf_tpu_torch.training import trainer as tr
-    from arnerf_tpu_torch.training.ckpt import tree_leaves
     cfg = NGPConfig(scale=0.5, grid_size=32, n_levels=4, log2_hashmap_size=12,
                     base_resolution=4)
-    tc = tr.TrainConfig(batch_size=512, seg_cap=8)
     ds = SyntheticDataset(split="train", read_meta=False,
                           config=SyntheticConfig(img_wh=(48, 48)))
     rng = np.random.default_rng(0)
@@ -612,36 +718,11 @@ def reference_train_step(dev):
                       torch.as_tensor(ds.poses[img]))
     gt = torch.as_tensor(rng.random((512, 3)), dtype=torch.float32)
     noise = torch.as_tensor(rng.random(512), dtype=torch.float32)
-    occ = analytic_occupancy(0.5, 32, 1)
-    out = {}
-    for d in (dev, torch.device("cpu")):
-        params = ngp_init(cfg, torch.Generator().manual_seed(3), d)
-        for leaf in tree_leaves(params):
-            leaf.requires_grad_(True)
-        state = grid_state_init(cfg, d)._replace(occ_flat=occ.to(d))
-        seg.reset_launches()
-        loss, res = tr.step_loss(params, state, ro.to(d), rd.to(d), gt.to(d),
-                                 noise=noise.to(d), seed=None, rgb_bg=None,
-                                 cfg=cfg, tc=tc, exp_step_factor=0.0,
-                                 seg_cap=8)
-        grads = torch.autograd.grad(loss, tree_leaves(params))
-        out[d.type] = (float(loss.detach()), [g.cpu() for g in grads],
-                       int(res["rm_samples"]), res["counts"].cpu(),
-                       dict(seg.launches))
-    (lg, gg, rg, cg, kl), (lc, gc, rc, cc, _) = out["cuda"], out["cpu"]
-    errs = [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-            for a, b in zip(gg, gc)]
-    print(f"reference: one f32 training step, card vs CPU: loss {lg} vs "
-          f"{lc}, gradient errors relative to each leaf's largest entry "
-          f"{errs}, samples {rg} vs {rc}, card segment_sum launches {kl}",
-          flush=True)
-    if rg != rc or not torch.equal(cg, cc):
-        raise AssertionError("card and CPU sample sets differ")
-    if abs(lg - lc) > 1e-5 * abs(lc) or max(errs) > 1e-4:
-        raise AssertionError("card and CPU training steps disagree")
-    if kl["exact"] != 1:
-        raise AssertionError(f"the card's step did not launch the exact "
-                             f"segment sum once: {kl}")
+    step_card_vs_cpu("reference", cfg, tr.TrainConfig(batch_size=512,
+                                                      seg_cap=8),
+                     ngp_init(cfg, torch.Generator().manual_seed(3)),
+                     analytic_occupancy(0.5, 32, 1), ro, rd, gt, noise, 0.0,
+                     dev)
 
 
 def ray_totals_check(dev):
@@ -1211,6 +1292,165 @@ def insert_phase(state, dev):
         raise AssertionError("card and CPU AR frames disagree")
 
 
+def write_captures(dev):
+    """Both captures of the procedural scene, rendered on the card and
+    written in parallel; returns the uint8 images written."""
+    import torch
+    from arnerf_tpu_torch.datasets.captures import (write_blender_capture,
+                                                    write_colmap_capture)
+    shutil.rmtree(CAPTURES_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    blender = write_blender_capture(str(CAPTURES_DIR / "blender"),
+                                    *BLENDER_VIEWS, wh=BLENDER_WH,
+                                    device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    colmap = write_colmap_capture(str(CAPTURES_DIR / "colmap"),
+                                  n_views=COLMAP_VIEWS, wh=COLMAP_WH,
+                                  device=dev)
+    t2 = time.perf_counter()
+    size = sum(f.stat().st_size for f in CAPTURES_DIR.rglob("*.png"))
+    print(f"captures: blender {BLENDER_VIEWS} views at {BLENDER_WH}^2 RGBA in "
+          f"{t1 - t0:.1f} s, colmap {COLMAP_VIEWS} views at {COLMAP_WH} in "
+          f"{t2 - t1:.1f} s (render + PNG filter types 0-4 + deflate); "
+          f"{size / 2 ** 20:.1f} MiB of PNG", flush=True)
+    return blender, colmap
+
+
+def decode_check(blender, colmap):
+    """Each split through its loader at downsample 1.0: every view must
+    equal the pixels written, after the loader's alpha blend (Blender:
+    to white; COLMAP: no alpha), within 1e-6. Returns load seconds."""
+    import numpy as np
+    from arnerf_tpu_torch.datasets import ColmapDataset, NeRFDataset
+    seconds, worst = {}, 0.0
+    keep = {"train": [i for i in range(COLMAP_VIEWS) if i % 8],
+            "test": [i for i in range(COLMAP_VIEWS) if i % 8 == 0]}
+    for split in ("train", "test"):
+        t0 = time.perf_counter()
+        ds = NeRFDataset(str(CAPTURES_DIR / "blender"), split=split)
+        seconds[f"blender_{split}"] = time.perf_counter() - t0
+        assert ds.rays.shape == (len(blender[split]), BLENDER_WH ** 2, 3)
+        for got, img in zip(ds.rays, blender[split]):
+            a = img.astype(np.float32) / 255.0
+            want = a[..., :3] * a[..., 3:] + (1 - a[..., 3:])
+            worst = max(worst, float(np.abs(got - want.reshape(-1, 3))
+                                     .max()))
+        t0 = time.perf_counter()
+        ds = ColmapDataset(str(CAPTURES_DIR / "colmap"), split=split)
+        seconds[f"colmap_{split}"] = time.perf_counter() - t0
+        assert ds.rays.shape == (len(keep[split]), COLMAP_WH[0]
+                                 * COLMAP_WH[1], 3)
+        for got, i in zip(ds.rays, keep[split]):
+            want = colmap[i].astype(np.float32) / 255.0
+            worst = max(worst, float(np.abs(got - want.reshape(-1, 3))
+                                     .max()))
+    print(f"captures: decode check, max abs error over every view "
+          f"{worst}; load seconds {seconds}", flush=True)
+    if worst > 1e-6:
+        raise AssertionError(f"decoded views differ from the pixels "
+                             f"written: {worst}")
+    return seconds
+
+
+def capture_card_vs_cpu(trainer, dev):
+    """step_card_vs_cpu on the trained scale-16 COLMAP model: its weights
+    and occupancy, 512 rays of its training views, f32, exact corners.
+    Exp stepping places samples with exp and log, and the cascade of a
+    sample comes from log2; the card's and the CPU's float32 versions of
+    these may differ by an ulp, which moves a sample across a cell or
+    cascade boundary now and then (2 of 193,514 in an H100 run). So the
+    sample totals may differ by 1e-4 of the total and each gradient leaf
+    by 1e-3 of its largest entry; the loss is held to 1e-5 as at scale
+    0.5."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from arnerf_tpu_torch.datasets.ray_utils import get_rays
+    rng = np.random.default_rng(1)
+    images = trainer.images.cpu().numpy()
+    img = rng.integers(0, len(images), 512)
+    pix = rng.integers(0, images.shape[1], 512)
+    ro, rd = get_rays(torch.as_tensor(trainer.dataset.directions[pix]),
+                      torch.as_tensor(trainer.dataset.poses[img]))
+    cfg = dataclasses.replace(trainer.cfg, compute_dtype="float32",
+                              stoch_corners=False)
+    tc = dataclasses.replace(trainer.tc, batch_size=512)
+    return step_card_vs_cpu(
+        "captures", cfg, tc, trainer.params, trainer.grid_state.occ_flat,
+        ro, rd, torch.as_tensor(images[img, pix, :3]),
+        torch.as_tensor(rng.random(512), dtype=torch.float32),
+        trainer.exp_step_factor, dev, sample_tol=1e-4, grad_tol=1e-3)
+
+
+def captures_phase(state, dev):
+    """Write both captures, check the decode, train and evaluate on each
+    through the entry points, and hold one scale-16 step card vs CPU."""
+    import numpy as np
+    blender, colmap = write_captures(dev)
+    load_s = decode_check(blender, colmap)
+    del blender, colmap
+    summary = {"load_s": load_s}
+    failures = []
+    for name in ("nerf", "colmap"):
+        root = str(CAPTURES_DIR / ("blender" if name == "nerf" else name))
+        work = SMOKE_DIR / f"captures_{name}"
+        argv = CAPTURE_ARGV[name] + ["--root_dir", root, "--exp_name", name]
+        res = train_entry(argv, work, f"captures[{name}]")
+        counts, blocks = res["counts"], res["blocks"]
+        trainer = res["trainer"]
+        state[("capture_train", name)] = {
+            k: counts[k] for k in ("head", "pack", "exact")}
+        extra = ["--grid_vis", str(work / "grid.png"), "--cam_vis",
+                 str(work / "cams.png"), "--mesh", str(work / "mesh.obj")] \
+            if name == "nerf" else []
+        val = eval_entry(argv + ["--ckpt_path", res["ckpt"], *extra],
+                         f"captures[{name}]")
+        state[("capture_eval", name)] = val["launches"]
+        steps = counts["step"]
+        summary[name] = {
+            "cascades": trainer.cfg.cascades,
+            "exp_step_factor": trainer.exp_step_factor,
+            "ms_per_step": res["ms_per_step"],
+            "train_psnr": blocks[-1]["psnr"],
+            "val_psnr": float(np.mean(val["psnr"])),
+            "ms_per_view": float(np.mean(val["ms_per_view"][1:])),
+            "samples_per_view": float(np.mean(val["total_samples"])),
+            "launches_per_step": {k: counts[k] / steps
+                                  for k in ("head", "pack", "exact")},
+            "head_launches_per_view": val["launches"]
+            / len(val["ms_per_view"])}
+        print(f"captures[{name}] summary: {summary[name]}", flush=True)
+        bad_loss = [b["loss"] for b in blocks if not np.isfinite(b["loss"])]
+        if bad_loss:
+            failures.append(f"{name}: non-finite losses {bad_loss}")
+        if min(counts["pack"], counts["exact"], counts["head"]) == 0:
+            failures.append(f"{name}: a kernel never ran in training: "
+                            f"{counts}")
+        if summary[name]["val_psnr"] <= 17.0 or (
+                name == "nerf" and summary[name]["train_psnr"] <= 19.0):
+            failures.append(f"{name}: quality bar missed: train PSNR "
+                            f"{summary[name]['train_psnr']}, validation "
+                            f"{val['psnr']}")
+        if name == "nerf":
+            written = [p.name for p in work.iterdir()]
+            print(f"captures[nerf]: eval wrote {sorted(written)}; mesh "
+                  f"{val.get('mesh_faces')} faces in "
+                  f"{val.get('mesh_seconds', 0):.1f} s", flush=True)
+            summary[name]["mesh_faces"] = val.get("mesh_faces", 0)
+            if not {"grid.png", "cams.png", "mesh.obj"} <= set(written) \
+                    or not val.get("mesh_faces"):
+                failures.append(f"nerf: eval outputs missing or an empty "
+                                f"mesh: {sorted(written)}")
+        else:
+            summary["card_vs_cpu_loss_rel"] = capture_card_vs_cpu(trainer,
+                                                                  dev)
+        del res, trainer
+    state["captures_summary"] = summary
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main() -> int:
     try:
         import torch
@@ -1248,10 +1488,11 @@ def main() -> int:
 
     def build_phase():
         from arnerf_tpu_torch import build
-        seconds = build.build()
-        print(f"build seconds (all nvcc started together): {seconds}; "
-              f"already built: {sorted(set(build.KERNEL_SOURCES) - set(seconds))}",
-              flush=True)
+        names = build.KERNEL_SOURCES + build.HOST_SOURCES
+        seconds = build.build(names)
+        print(f"build seconds (nvcc for each kernel and c++ for the image "
+              f"decoder, all started together): {seconds}; already built: "
+              f"{sorted(set(names) - set(seconds))}", flush=True)
         spills = []
         for name in build.KERNEL_SOURCES:
             log = build.library_path(name).with_suffix(".so.log")
@@ -1298,6 +1539,7 @@ def main() -> int:
     phase("insert", lambda: insert_phase(state, dev))
     phase("real_updates", lambda: run_real_updates(state, dev))
     phase("reference", reference_phase)
+    phase("captures", lambda: captures_phase(state, dev))
     try:   # measurements, not checks: their absence fails nothing
         profile_view(state.get("ckpt") or write_smoke_checkpoint(dev), dev)
         if "trainer" in state:
@@ -1327,6 +1569,11 @@ def main() -> int:
                    "train_validation":
                        state.get("train_val_launches", 0) if bf16 else 0,
                    "insert": state.get("insert_launches", 0) if bf16 else 0}
+        for name in ("nerf", "colmap"):      # the captures phase, bf16
+            by_path[f"captures_train_{name}"] = state.get(
+                ("capture_train", name), {}).get("head", 0) if bf16 else 0
+            by_path[f"captures_eval_{name}"] = state.get(
+                ("capture_eval", name), 0) if bf16 else 0
         kernels.append({
             "name": f"fused_field_head[{dtype_name}]", "route": "cuda",
             "source": "arnerf_tpu_torch/csrc/fused_head.cu",
@@ -1343,12 +1590,16 @@ def main() -> int:
         nums = state.get(("segment_sum", mode))
         if nums is None:
             continue
+        by_path = {"train": train.get(mode, 0)}
+        for name in ("nerf", "colmap"):
+            by_path[f"captures_train_{name}"] = state.get(
+                ("capture_train", name), {}).get(mode, 0)
         kernels.append({
             "name": f"segment_sum[{mode}]", "route": "cuda",
             "source": "arnerf_tpu_torch/csrc/segment_sum.cu",
             "replaces": "arnerf_tpu/ops/segments.py:86",
-            "launches": train.get(mode, 0),
-            "launches_by_path": {"train": train.get(mode, 0)},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             **{k: nums[k] for k in ("max_abs_err", "ms", "eager_ms",
                                     "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "level_major_ms")},

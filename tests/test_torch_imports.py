@@ -1,7 +1,8 @@
 """Import hygiene of the port: arnerf_tpu_torch and chip_smoke.py import
 neither jax/jaxlib nor the JAX package `arnerf_tpu` (matched as a whole
-module name: `arnerf_tpu_torch` itself is allowed), and importing the
-package builds no kernel."""
+module name: `arnerf_tpu_torch` itself is allowed), nor an image library
+(cv2, imageio, PIL: the GPU machine has none; the port decodes with its own
+native code), and importing the package builds no kernel and no decoder."""
 
 import ast
 import os
@@ -13,6 +14,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "arnerf_tpu")
+IMAGE_LIBRARIES = ("cv2", "imageio", "PIL")
 PORT_FILES = sorted(
     [p.relative_to(REPO).as_posix()
      for p in (REPO / "arnerf_tpu_torch").rglob("*.py")]
@@ -60,6 +62,13 @@ def test_no_jax_or_reference_package_imports(rel):
     assert not bad, f"{rel} imports {bad}"
 
 
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_no_image_library_imports(rel):
+    bad = [(line, mod) for line, mod in _imports(REPO / rel)
+           if mod.split(".")[0] in IMAGE_LIBRARIES]
+    assert not bad, f"{rel} imports {bad}"
+
+
 def test_importing_the_package_builds_nothing(tmp_path):
     """Import every module of the port in a fresh interpreter with process
     creation disabled: no nvcc runs, no library loads, no jax arrives."""
@@ -76,7 +85,8 @@ for m in mods:
 from arnerf_tpu_torch import build
 assert not build._loaded, build._loaded
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "arnerf_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "arnerf_tpu", "cv2",
+                                    "imageio", "PIL"))
 assert not bad, bad
 print("imported", len(mods))
 """

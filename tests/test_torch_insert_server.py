@@ -257,8 +257,8 @@ def test_insert_entry_point_refusals(tmp_path, monkeypatch):
     for flag in ("--use_EXR", "--use_exposure"):
         with pytest.raises(NotImplementedError, match="tonemapper heads"):
             t_main.main(SMALL_FLAGS + ["--device", "cpu", flag])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_main.main(["--dataset_name", "nerf", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not ported.*OpenEXR"):
+        t_main.main(["--dataset_name", "rtmv", "--device", "cpu"])
 
 
 def test_decoders_read_the_viewer_bytes_as_the_jax_server():
@@ -328,3 +328,17 @@ def test_png_and_exr_files_read_back(tmp_path):
                                atol=0)
     np.testing.assert_allclose(got[1].reshape(6, 9, 3), ldr / 255.0,
                                rtol=0, atol=1e-6)
+
+
+def test_recorded_frames_are_numbered_pngs(tmp_path):
+    """record=True keeps every served frame as a PNG under
+    <gen_path>/record/ (the reference writes an OpenCV video; the port has
+    no video encoder)."""
+    from arnerf_tpu_torch.image_io import read_png
+    srv = t_main.NGPServer.__new__(t_main.NGPServer)
+    srv.record_dir, srv.render_num = str(tmp_path), 7
+    rgb = np.linspace(-0.5, 1.5, 4 * 5 * 3).reshape(4, 5, 3)
+    srv._display(torch.as_tensor(rgb))
+    got = read_png(str(tmp_path / "frame_00007.png"))
+    np.testing.assert_array_equal(
+        got, (np.clip(rgb, 0, 1) * 255).astype(np.uint8))

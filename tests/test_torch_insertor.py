@@ -389,3 +389,37 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             t_main.NGPInsertor(make_hparams("x", device="cuda"))
+
+
+def test_insertor_on_a_colmap_capture_matches_jax(tmp_path, monkeypatch):
+    """NGPInsertor on a tiny COLMAP-format capture (datasets/captures.py):
+    K, W, H and the dataset's blender_trans / blender_scale equal the JAX
+    insertor's, first reading the dataset (read_meta=True), then, with a
+    surface cache on disk, on the read_meta=False path, where neither
+    package reads the images or the pose normalisation."""
+    import arnerf_tpu.native as j_native
+    from arnerf_tpu_torch.datasets.captures import write_colmap_capture
+    monkeypatch.setattr(j_native, "_get_lib", lambda: None)
+    monkeypatch.chdir(tmp_path)
+    root = str(tmp_path / "capture")
+    write_colmap_capture(root, n_views=9, wh=(24, 16), focal=20.0,
+                         n_points=200, n_samples=32)
+    flags = dict(dataset_name="colmap", root_dir=root, downsample=0.5,
+                 scale=16.0, low_resolution=1.0)
+    for read_meta in (True, False):
+        if not read_meta:
+            for exp in ("c_jax", "c_port"):
+                os.makedirs(f"insert/generate/{exp}", exist_ok=True)
+                np.save(f"insert/generate/{exp}/surface.npy", np.zeros(1))
+        j_ins = j_main.NGPInsertor(make_hparams("c_jax", **flags))
+        t_ins = t_main.NGPInsertor(make_hparams("c_port", **flags))
+        np.testing.assert_allclose(t_ins.K, j_ins.K, atol=1e-6, rtol=0)
+        assert (t_ins.W, t_ins.H) == (j_ins.W, j_ins.H) == (12, 8)
+        for k in ("blender_trans", "blender_scale"):
+            want = getattr(j_ins.dataset, k, None)
+            got = getattr(t_ins.dataset, k, None)
+            assert (got is None) == (want is None) == (not read_meta)
+            if read_meta:
+                np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+        assert len(t_ins.dataset.rays) == len(j_ins.dataset.rays) \
+            == (7 if read_meta else 0)

@@ -185,12 +185,14 @@ def test_eval_refuses_cuda_without_a_card_and_unported_flags(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             t_eval.main(args)
-    for flag in ("--mesh", "--grid_vis", "--cam_vis"):
-        with pytest.raises(SystemExit, match="not ported"):
-            t_eval.main(args + [flag, "out"])
-    with pytest.raises(SystemExit, match="not ported"):
-        t_eval.main(["--dataset_name", "nerf", "--device", "cpu",
-                     "--ckpt_path", "x.npz"])
+    for name in ("colmap_exr", "colmap_real_exr", "myblender", "rtmv"):
+        with pytest.raises(SystemExit, match="not ported.*OpenEXR"):
+            t_eval.main(["--dataset_name", name, "--device", "cpu",
+                         "--ckpt_path", "x.npz", "--mesh", "out.obj"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ARNERF_EVAL_BAKED", "1")
+        with pytest.raises(SystemExit, match="not ported.*queue 1, item 3"):
+            t_eval.main(args + ["--device", "cpu"])
 
 
 @pytest.mark.parametrize("fast,with_im", [(True, False), (False, False),

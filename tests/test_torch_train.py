@@ -270,7 +270,7 @@ def test_train_entry_point_needs_the_card_or_device_cpu(tmp_path):
                                   ["--use_EXR"], ["--num_gpus", "2"],
                                   ["--model_parallel", "2"],
                                   ["--eval_lpips"],
-                                  ["--dataset_name", "nerf"]])
+                                  ["--dataset_name", "rtmv"]])
 def test_train_entry_point_refuses_unported_flags(flag):
     from arnerf_tpu_torch import train as t_train
     argv = ["--device", "cpu", "--dataset_name", "synthetic", *flag]

@@ -6,11 +6,17 @@ eval.py:22-157).
       --ckpt_path ckpt.npz [--mesh out.obj] [--grid_vis grid.png] \
       [--cam_vis cams.png] [--downsample 0.25] [--device cpu]
 
-Runs on the card by default, with the fused field-head kernel and
---compute_dtype auto = bfloat16; --device cpu runs the plain versions in
-float32. Checkpoints are the JAX package's .npz layout. --mesh queries the
-density at 256^3 points and runs marching tetrahedra on the same device.
-ARNERF_EVAL_BAKED needs the baked renderer, not ported yet, and is refused.
+Runs on the card by default, with the fused field-head kernel; the field
+is evaluated in float32 on every device, as the JAX eval renders
+(--compute_dtype bfloat16 asks for bf16). --device cpu runs the plain
+versions. Checkpoints are the JAX package's .npz layout. --mesh queries
+the density at 256^3 points and runs marching tetrahedra on the same
+device.
+
+ARNERF_EVAL_BAKED=1 bakes the field (rendering_baked.bake_ngp, 256^3
+voxels a cascade) and renders the views through render_baked instead of
+the network; the bake time is printed before the FPS line. As in the JAX
+eval, only LDR (Sigmoid) models bake.
 """
 
 import os
@@ -88,10 +94,6 @@ def main(argv=None) -> dict:
     returns the numbers as a dict."""
     argv = list(sys.argv[1:] if argv is None else argv)
     extra = _pop_flags(argv)
-    if os.environ.get("ARNERF_EVAL_BAKED", "") not in ("", "0"):
-        raise SystemExit("ARNERF_EVAL_BAKED: the baked renderer "
-                         "(rendering_baked.py) is not ported to "
-                         "arnerf_tpu_torch yet (ROADMAP queue 1, item 3)")
     hparams = get_opts(argv)
 
     from .datasets import dataset_dict, unported_reason
@@ -112,7 +114,7 @@ def main(argv=None) -> dict:
         split="test", root_dir=hparams.root_dir,
         downsample=hparams.downsample, device=device)
 
-    cfg = model_config(hparams, device)
+    cfg = model_config(hparams, device, auto_on_cuda="float32")
     params, grid_state, _ = load_ckpt(
         hparams.ckpt_path,
         params_template=ngp_init(cfg, torch.Generator().manual_seed(0),
@@ -127,18 +129,43 @@ def main(argv=None) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    psnrs, ssims, times, samples = [], [], [], []
+    res = {}
+    baked = None
+    if os.environ.get("ARNERF_EVAL_BAKED", "") not in ("", "0") \
+            and cfg.rgb_act == "Sigmoid":
+        from .ops import threefry
+        from .rendering_baked import bake_ngp, render_baked
+        sync()
+        t0 = time.perf_counter()
+        baked = bake_ngp(params, grid_state, cfg)
+        sync()
+        res["bake_seconds"] = time.perf_counter() - t0
+        # voxels evaluated: the occupied rows of the colour table
+        res["bake_voxels"] = 0 if baked.rows_q is None \
+            else int(baked.rows_q.shape[0]) - 1
+        print(f"baked field in {res['bake_seconds']:.1f}s", flush=True)
+
+    psnrs, ssims, times, samples, rounds = [], [], [], [], []
     for i in range(len(test_ds.poses)):
         rays_o, rays_d = get_rays(
             dirs, torch.as_tensor(test_ds.poses[i], device=device))
         sync()
         t0 = time.perf_counter()
-        out = render_test(params, grid_state, rays_o, rays_d, cfg,
-                          exp_step_factor=exp_step_factor,
-                          T_threshold=1e-2, max_samples=96, fast=True)
+        if baked is not None:
+            stats = {}
+            out = render_baked(baked, grid_state, rays_o, rays_d, cfg,
+                               key=threefry.prng_key(i), T_threshold=1e-2,
+                               img_wh=(w, h), stats=stats)
+        else:
+            out = render_test(params, grid_state, rays_o, rays_d, cfg,
+                              exp_step_factor=exp_step_factor,
+                              T_threshold=1e-2, max_samples=96, fast=True)
         sync()
         times.append(time.perf_counter() - t0)
-        samples.append(int(out["total_samples"]))
+        if baked is not None:
+            rounds.append(stats["rounds"])
+        else:
+            samples.append(int(out["total_samples"]))
         pred = out["rgb"].reshape(h, w, 3)
         if exp_step_factor == 0.0:
             pred = pred + (1 - out["opacity"].reshape(h, w, 1))
@@ -155,9 +182,10 @@ def main(argv=None) -> dict:
     if psnrs:
         msg += f"  PSNR: {np.mean(psnrs):.3f}  SSIM: {np.mean(ssims):.4f}"
     print(msg, flush=True)
-    res = {"fps": fps, "img_wh": (w, h), "seconds_per_view": times,
-           "total_samples": samples, "psnr": psnrs, "ssim": ssims,
-           "compute_dtype": cfg.compute_dtype, "device": str(device)}
+    res.update(fps=fps, img_wh=(w, h), seconds_per_view=times,
+               total_samples=samples, psnr=psnrs, ssim=ssims,
+               compute_dtype=cfg.compute_dtype, device=str(device),
+               baked=baked is not None, rounds_per_bucket=rounds)
 
     if "grid_vis" in extra:
         write_png(extra["grid_vis"], grid_slices(

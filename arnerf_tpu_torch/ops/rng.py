@@ -6,8 +6,8 @@ Given the same seed it draws exactly the JAX package's bits, which is what
 makes the stochastic-corner picks of ops/hashgrid.py equal across the two
 packages. torch has no uint32 arithmetic, so the values live in int64 and
 every product is reduced mod 2^32 (`_mul32`, split so no product leaves the
-int64 range). `hash_uniform3` serves only the baked renderer and is not
-ported yet.
+int64 range). `hash_uniform3` slices one hash into three coarser uniforms
+for the baked renderer's per-sample jitter (rendering_baked.py).
 """
 
 import torch
@@ -59,3 +59,16 @@ def hash_uniform(idx: torch.Tensor, seed: int, stream: int = 0):
     off = (stream * _GOLDEN) & _U32
     hs = _hash_u32_int(int(seed) + off)
     return uniform_from_u32(hash_u32((idx.to(torch.int64) & _U32) ^ hs))
+
+
+def hash_uniform3(idx: torch.Tensor, seed: int, stream: int = 0):
+    """Three uniforms per element from one hash: its 32 bits cut into
+    11/11/10-bit fields (resolution 2^-11, 2^-11, 2^-10), the JAX
+    package's render-time jitter, bit for bit."""
+    off = (stream * _GOLDEN) & _U32
+    hs = _hash_u32_int(int(seed) + off)
+    h = hash_u32((idx.to(torch.int64) & _U32) ^ hs)
+    u0 = (h & 0x7FF).to(torch.float32) * (2.0 ** -11)
+    u1 = ((h >> 11) & 0x7FF).to(torch.float32) * (2.0 ** -11)
+    u2 = (h >> 22).to(torch.float32) * (2.0 ** -10)
+    return u0, u1, u2

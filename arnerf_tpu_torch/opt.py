@@ -64,8 +64,9 @@ def get_opts(args=None):
     parser.add_argument('--max_pc_pts_num', type=int, default=int(1e6))
     parser.add_argument('--no_global_SH', action='store_true', default=False)
 
-    # compute type ('auto' = bfloat16 on cuda, float32 on cpu; the reference
-    # hard-codes fp16 autocast, train.py:291)
+    # compute type ('auto' = float32 on cpu; on cuda bfloat16 for training
+    # and float32 for eval; the reference hard-codes fp16 autocast,
+    # train.py:291)
     parser.add_argument('--compute_dtype', type=str, default='auto',
                         choices=['auto', 'float32', 'bfloat16'],
                         help='field-eval dtype (float32 accumulation)')
@@ -102,24 +103,27 @@ def get_opts(args=None):
     return parser.parse_args(args)
 
 
-def resolve_compute_dtype(compute_dtype: str, device) -> str:
-    """'auto' -> 'bfloat16' on cuda, 'float32' on cpu (train.py:67-75)."""
+def resolve_compute_dtype(compute_dtype: str, device,
+                          auto_on_cuda: str = 'bfloat16') -> str:
+    """'auto' -> `auto_on_cuda` on cuda (bf16 for training, train.py:67-75),
+    'float32' on cpu."""
     if compute_dtype == 'auto':
-        return 'bfloat16' if device.type == 'cuda' else 'float32'
+        return auto_on_cuda if device.type == 'cuda' else 'float32'
     return compute_dtype
 
 
-def model_config(hparams, device, **kw):
+def model_config(hparams, device, auto_on_cuda: str = 'bfloat16', **kw):
     """The NGPConfig the flags describe on `device` (train.py:59-79):
-    bf16 on the card unless --compute_dtype says otherwise, the fused head
-    on the card, the size flags."""
+    --compute_dtype auto is `auto_on_cuda` on the card (bf16 for training;
+    eval passes float32, as the JAX eval.py:54-55 renders in f32), the
+    fused head on the card, the size flags."""
     from .models import NGPConfig
     rgb_act = 'None' if (hparams.use_exposure or hparams.use_EXR) \
         else 'Sigmoid'
     return NGPConfig(scale=hparams.scale, rgb_act=rgb_act,
                      use_raw_hdr=hparams.use_EXR,
                      compute_dtype=resolve_compute_dtype(
-                         hparams.compute_dtype, device),
+                         hparams.compute_dtype, device, auto_on_cuda),
                      fused_head=device.type == 'cuda',
                      grid_size=hparams.grid_size, n_levels=hparams.n_levels,
                      log2_hashmap_size=hparams.log2_hashmap_size, **kw)

@@ -7,15 +7,17 @@ Same flags and outputs as the JAX CLI: checkpoints under
 ckpts/{dataset}/{exp}/ (epoch=N.npz and its _slim copy), metrics under
 logs/{dataset}/{exp}/metrics.jsonl, and the test views with their depth
 maps under results/{dataset}/{exp}/, relative to the working directory.
-The depth maps are grayscale PNGs (the JAX CLI colours them with OpenCV's
-turbo map; the port depends on no image library).
+The depth maps are coloured with OpenCV's turbo map, as the JAX CLI's are
+(the port carries the table: utils/colormap.py). --eval_lpips adds
+`test/lpips_rand=` (or `test/lpips_vgg=` with the official weights) to the
+test line (training/lpips.py).
 
 Runs on the card by default, with the fused field-head kernel, bf16 field
 evaluation and stochastic corners (train.py:64-75); --device cpu runs the
 plain versions in float32 with exact corners. The datasets are synthetic,
 nerf, nsvf, nerfpp and colmap. Flags whose modules are not ported yet are
 refused: --optimize_ext, --use_exposure, --use_EXR, --num_gpus > 1,
---model_parallel > 1, --eval_lpips and the EXR datasets (colmap_exr,
+--model_parallel > 1 and the EXR datasets (colmap_exr,
 colmap_real_exr, myblender, rtmv). Synthetic-NSVF runs end with the JAX
 CLI's no-mp4-backend message: the port writes no video.
 """
@@ -33,7 +35,7 @@ from .opt import get_opts, model_config
 
 def _refuse_unported(hparams):
     from .datasets import unported_reason
-    for flag in ("optimize_ext", "use_exposure", "use_EXR", "eval_lpips"):
+    for flag in ("optimize_ext", "use_exposure", "use_EXR"):
         if getattr(hparams, flag):
             raise SystemExit(f"--{flag} is not ported to arnerf_tpu_torch "
                              f"yet; use the JAX train.py")
@@ -47,9 +49,11 @@ def _refuse_unported(hparams):
 
 
 def depth2img(depth):
-    """Depth normalised to [0, 255] (reference train.py:45-50, grayscale)."""
+    """Depth normalised to [0, 255], coloured with the turbo map as RGB
+    (reference train.py:45-50)."""
+    from .utils.colormap import apply_turbo
     d = (depth - depth.min()) / max(float(depth.max() - depth.min()), 1e-9)
-    return (d * 255).astype(np.uint8)
+    return apply_turbo((d * 255).astype(np.uint8))
 
 
 def main(argv=None, callback=None) -> dict:
@@ -64,7 +68,8 @@ def main(argv=None, callback=None) -> dict:
     from .device import resolve_device
     from .training.ckpt import slim_ckpt
     from .training.losses import NeRFLossConfig
-    from .training.metrics import psnr as psnr_fn, ssim as ssim_fn
+    from .training.metrics import (lpips as lpips_fn, psnr as psnr_fn,
+                                   ssim as ssim_fn)
     from .training.trainer import NeRFTrainer, TrainConfig
 
     device = resolve_device(hparams.device)
@@ -123,7 +128,7 @@ def main(argv=None, callback=None) -> dict:
     if not hparams.no_save_test:
         os.makedirs(val_dir, exist_ok=True)
     w, h = test_ds.img_wh
-    psnrs, ssims = [], []
+    psnrs, ssims, lpipss = [], [], []
     for i in range(len(test_ds.poses)):
         out = trainer.render_pose(test_ds.poses[i])
         pred = out["rgb"].reshape(h, w, 3)
@@ -135,14 +140,19 @@ def main(argv=None, callback=None) -> dict:
                                  device=device).reshape(h, w, 3)
             psnrs.append(float(psnr_fn(pred, gt)))
             ssims.append(float(ssim_fn(pred, gt)))
+            if hparams.eval_lpips:
+                lpipss.append(lpips_fn(pred, gt))
         if not hparams.no_save_test:
             write_png(os.path.join(val_dir, f"{i:03d}.png"),
                       (pred.cpu().numpy() * 255).astype(np.uint8))
             write_png(os.path.join(val_dir, f"{i:03d}_d.png"),
                       depth2img(out["depth"].reshape(h, w).cpu().numpy()))
     if psnrs:
-        print(f"test/psnr={np.mean(psnrs):.3f} "
-              f"test/ssim={np.mean(ssims):.4f}", flush=True)
+        msg = f"test/psnr={np.mean(psnrs):.3f} test/ssim={np.mean(ssims):.4f}"
+        if lpipss:
+            # random-feature values are labelled lpips_rand, never lpips_vgg
+            msg += f" test/{lpipss[0].label}={np.mean(lpipss):.4f}"
+        print(msg, flush=True)
     # rgb/depth videos for Synthetic-NSVF (train.py:183-203): the port has
     # no mp4 encoder, so it takes the JAX CLI's no-backend branch
     if not hparams.no_save_test and hparams.dataset_name == "nsvf" \
@@ -150,7 +160,7 @@ def main(argv=None, callback=None) -> dict:
         print("video export skipped (no mp4 backend: arnerf_tpu_torch "
               "writes no video)", flush=True)
     return {"trainer": trainer, "psnr": psnrs, "ssim": ssims,
-            "ckpt_dir": ckpt_dir}
+            "lpips": [float(v) for v in lpipss], "ckpt_dir": ckpt_dir}
 
 
 if __name__ == "__main__":

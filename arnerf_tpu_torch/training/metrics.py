@@ -1,5 +1,7 @@
-"""Image quality metrics (port of arnerf_tpu/training/metrics.py: PSNR and
-SSIM; the reference uses torchmetrics, train.py:68-74)."""
+"""Image quality metrics (port of arnerf_tpu/training/metrics.py: PSNR,
+SSIM and LPIPS; the reference uses torchmetrics, train.py:68-74). LPIPS
+always takes the port's own net (training/lpips.py): there is no
+torchmetrics branch."""
 
 import numpy as np
 import torch
@@ -47,3 +49,35 @@ def ssim(pred, gt, data_range: float = 1.0):
     s = ((2 * mu_pg + C1) * (2 * sigma_pg + C2)) / \
         ((mu_pp + mu_gg + C1) * (sigma_p + sigma_g + C2))
     return torch.mean(s)
+
+
+class LpipsValue(float):
+    """A float LPIPS value that says whether trained features produced it:
+    `label` is `lpips_vgg` with the official weights and `lpips_rand` with
+    the random-feature net, whose values are not comparable to published
+    LPIPS(vgg) tables (training/lpips.py)."""
+    trained: bool = False
+
+    def __new__(cls, value, trained):
+        v = super().__new__(cls, value)
+        v.trained = bool(trained)
+        return v
+
+    @property
+    def label(self):
+        return "lpips_vgg" if self.trained else "lpips_rand"
+
+
+_LPIPS_PARAMS = {}     # device -> the net's parameters, built once
+
+
+def lpips(pred, gt):
+    """LPIPS of two (H, W, 3) tensors in [0, 1] on one device, with the
+    official weights when they are present, else the random-feature net."""
+    from .lpips import lpips_distance, lpips_params
+    dev = pred.device
+    if dev not in _LPIPS_PARAMS:
+        _LPIPS_PARAMS[dev] = lpips_params(device=dev)
+    params = _LPIPS_PARAMS[dev]
+    return LpipsValue(float(lpips_distance(params, pred, gt)),
+                      params["trained"])

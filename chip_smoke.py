@@ -25,7 +25,8 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  1,000-step epoch (batch 8192, 400x400 images, bf16,
                  stochastic corners annealed to exact at step 800, segment
                  pool with sort selection), then the eval entry point
-                 renders the checkpoint at 800x800. The segment-sum kernel
+                 renders the checkpoint at 800x800 (f32, as eval runs by
+                 default). The segment-sum kernel
                  must run in both modes and the fused head must run; train
                  PSNR must pass 19 dB and validation PSNR 17 dB.
   insert   - the AR insertion server's path at 800x800 from the train
@@ -43,6 +44,15 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  post-warmup training step of the trained model (captured
                  from the hash-grid backward), against its plain version,
                  timed beside index_add_ and the level-major order.
+  baked    - the eval entry point with ARNERF_EVAL_BAKED=1 on the train
+                 phase's checkpoint at 800x800: bake_ngp at 256^3 (f32,
+                 stochastic corners, the fused head on every chunk), then
+                 4 views through render_baked (bricks, 2x2 blocks); the
+                 bake must launch the fused head and the views pass 17 dB.
+                 Then a 64^3 stochastic bake of the checkpoint on the card
+                 and on the CPU (rows to 1e-4 of their largest entry, codes
+                 within 1) and a 64x64 trilinear and stochastic render of
+                 the CPU's bake on both (1e-4, the same rounds).
   5. reference - a 64x64 view rendered in f32, and one f32 training step at
                  a small size, on the card (kernels) and on the CPU (plain
                  versions) must agree; the compositing's per-ray totals
@@ -57,17 +67,26 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  points on the analytic surface). The loaders must decode
                  every view to the pixels written, after their alpha blend,
                  within 1e-6. The train entry point then runs 1,000 steps on
-                 each: nerf at the defaults (batch 8192), then eval with
-                 --grid_vis, --cam_vis and --mesh (train PSNR > 19 dB,
-                 validation > 17 dB, all three files, > 0 faces); colmap with
-                 the mip-NeRF 360 outdoor flags (--scale 16: 6 cascades, exp
-                 stepping; batch 4096, lr 2e-2), then eval (a finite loss
-                 at every block, validation > 17 dB). Both kernels must run
+                 each: nerf at the defaults (batch 8192) with --eval_lpips
+                 (a finite lpips_rand), then eval in f32 with --grid_vis,
+                 --cam_vis and --mesh (train PSNR > 19 dB, validation > 17
+                 dB, all three files, > 0 faces) and again in bf16, and two
+                 800x800 LPIPS pairs (a rendered view against its ground
+                 truth, and the ground truth against itself shifted by 4
+                 pixels) on the card with TF32 allowed around the call and
+                 on the CPU (1e-4 relative); colmap
+                 with the mip-NeRF 360 outdoor flags (--scale 16: 6
+                 cascades, exp stepping; batch 4096, lr 2e-2), then eval (a
+                 finite loss at every block, validation > 17 dB) and the
+                 baked eval (the multi-cascade bake and renderer, > 17 dB,
+                 fused-head launches in the bake). Both kernels must run
                  on both training paths. One f32 training step of the
                  trained scale-16 model must agree card vs CPU to 1e-5.
-Then torch.profiler passes over one bf16 view, one post-warmup training
-block and one AR frame print where their time goes (measurements only;
-they fail nothing).
+Then torch.profiler passes over one bf16 view, one baked view, one
+post-warmup training block and one AR frame print where their time goes;
+the baked view's pass bakes with exact corners and prints that bake's
+seconds and its PSNR on the 4 views (measurements only; they fail
+nothing).
 Prints the card's name and power limit, then one JSON line of per-kernel
 numbers, then the result line {"ok": true, "device": {...}}.
 """
@@ -106,9 +125,12 @@ BLENDER_VIEWS = (100, 8)        # train, test: the reference's Blender split
 BLENDER_WH = 800                # the Blender scenes' size (datasets/nerf.py)
 COLMAP_VIEWS = 64               # every 8th is a test view
 COLMAP_WH = (1240, 824)         # about mip-NeRF 360 at --downsample 0.25
+BAKE_DIRS = 32                  # bake_ngp's quadrature directions
+BAKE_CHECK_RES = 64             # card-vs-CPU bake (B^3 voxels)
 CAPTURE_ARGV = {
+    # benchmarking/benchmark_synthetic_nerf.sh passes --eval_lpips
     "nerf": ["--dataset_name", "nerf", "--num_epochs", "1",
-             "--batch_size", "8192"],
+             "--batch_size", "8192", "--eval_lpips"],
     # mip-NeRF 360's outdoor flags (benchmarking/benchmark_mipnerf360.sh)
     "colmap": ["--dataset_name", "colmap", "--scale", "16", "--batch_size",
                "4096", "--lr", "2e-2", "--num_epochs", "1"]}
@@ -507,22 +529,39 @@ def train_entry(argv, work, label):
     return res
 
 
-def eval_entry(argv, label):
-    """The eval entry point with `argv`, the head's counter set to 0 just
-    before; returns its result with the launches and ms/view added."""
+def eval_entry(argv, label, baked=False):
+    """The eval entry point with `argv` (with ARNERF_EVAL_BAKED=1 if
+    `baked`), the head's counter set to 0 just before; returns its result
+    with the launches and ms/view added."""
+    import numpy as np
     import torch
     from arnerf_tpu_torch import eval as port_eval
     from arnerf_tpu_torch.ops import fused_head as fh
-    fh.reset_launches()
-    val = port_eval.main(argv)
-    torch.cuda.synchronize()
+    prev = os.environ.pop("ARNERF_EVAL_BAKED", None)
+    if baked:
+        os.environ["ARNERF_EVAL_BAKED"] = "1"
+    try:
+        fh.reset_launches()
+        val = port_eval.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("ARNERF_EVAL_BAKED", None)
+        if prev is not None:
+            os.environ["ARNERF_EVAL_BAKED"] = prev
     val["launches"] = fh.launches
     views = len(val["seconds_per_view"])
     val["ms_per_view"] = [1e3 * t for t in val["seconds_per_view"]]
-    print(f"{label}: eval at {val['img_wh']}: PSNR {val['psnr']} FPS "
-          f"{val['fps']} ms/view {val['ms_per_view']} samples/view "
-          f"{val['total_samples']} fused-head launches {fh.launches} "
+    kind = (f"baked ({val['bake_voxels']} voxels x {BAKE_DIRS} directions "
+            f"= {val['bake_voxels'] * BAKE_DIRS} field rows in "
+            f"{val['bake_seconds']:.2f} s; rounds per bucket "
+            f"{val['rounds_per_bucket']})" if val["baked"]
+            else f"network, samples/view {val['total_samples']}")
+    print(f"{label}: eval at {val['img_wh']} in {val['compute_dtype']}: "
+          f"PSNR {val['psnr']} FPS {val['fps']} ms/view {val['ms_per_view']} "
+          f"{kind}; fused-head launches {fh.launches} "
           f"({fh.launches / views} per view)", flush=True)
+    if not all(np.isfinite(val["psnr"])):
+        raise AssertionError(f"{label}: non-finite PSNR {val['psnr']}")
     return val
 
 
@@ -540,7 +579,9 @@ def run_train(state):
                       "--ckpt_path", res["ckpt"]], "train")
     state["train_summary"] = {"ms_per_step": res["ms_per_step"],
                               "train_psnr": last["psnr"],
-                              "val_psnr": float(np.mean(val["psnr"]))}
+                              "val_psnr": float(np.mean(val["psnr"])),
+                              "ms_per_view": float(np.mean(
+                                  val["ms_per_view"][1:]))}
     if not np.isfinite(last["loss"]):
         raise AssertionError(f"non-finite loss {last['loss']}")
     if min(counts["pack"], counts["exact"], counts["head"]) == 0:
@@ -548,6 +589,158 @@ def run_train(state):
     if last["psnr"] <= 19.0 or float(np.mean(val["psnr"])) <= 17.0:
         raise AssertionError(f"quality bar missed: train PSNR "
                              f"{last['psnr']}, validation {val['psnr']}")
+
+
+def baked_card_vs_cpu(ckpt, dev):
+    """The train phase's checkpoint baked at BAKE_CHECK_RES^3 with
+    stochastic corners on the card (fused head, f32) and on the CPU (plain
+    versions): rows to 1e-4 of their largest entry, every code (sigma
+    bricks, int8 colours) within 1, the row index equal. Then the CPU's
+    bake renders a 64x64 view on both, trilinear and stochastic (bricks)
+    from the same key: rgb, opacity and depth to 1e-4, rounds equal."""
+    import torch
+    from arnerf_tpu_torch.datasets.ray_utils import get_rays
+    from arnerf_tpu_torch.datasets.synthetic import (SyntheticConfig,
+                                                     SyntheticDataset)
+    from arnerf_tpu_torch.models import NGPConfig, grid_state_init
+    from arnerf_tpu_torch.ops import threefry
+    from arnerf_tpu_torch.rendering_baked import (BakedField, bake_ngp,
+                                                  render_baked)
+    from arnerf_tpu_torch.training.ckpt import load_ckpt
+    sides = (("card", dev), ("cpu", torch.device("cpu")))
+    cfg = NGPConfig(scale=0.5, fused_head=True)
+    bakes, secs = {}, {}
+    for side, d in sides:
+        params, state, _ = load_ckpt(ckpt, grid_template=grid_state_init(
+            cfg, d), device=d)
+        t0 = time.perf_counter()
+        bakes[side] = bake_ngp(params, state, cfg,
+                               resolution=BAKE_CHECK_RES, stoch=True)
+        torch.cuda.synchronize()
+        secs[side] = time.perf_counter() - t0
+    g, c = bakes["card"], bakes["cpu"]
+    rows_err = float((g.rows.cpu() - c.rows).abs().max()
+                     / c.rows.abs().max())
+    # rows_q: 27 int8 SH codes and a pad byte, then the f32 scale's bytes
+    code_err = {k: int((getattr(g, k)[:, :cols].cpu().int()
+                        - getattr(c, k)[:, :cols].int()).abs().max())
+                for k, cols in (("sigma_bricks", None), ("rows_q", 28))}
+    g_sc, c_sc = (b.rows_q[:, 28:].cpu().contiguous().view(torch.float32)
+                  for b in (g, c))
+    rows_err = max(rows_err, float((g_sc - c_sc).abs().max()
+                                   / c_sc.abs().max()))
+    same_index = bool(torch.equal(g.row_index.cpu(), c.row_index))
+    print(f"baked: card vs CPU bake at {BAKE_CHECK_RES}^3 (stochastic "
+          f"corners, f32): rows and colour scales max err / max "
+          f"{rows_err}, codes max diff "
+          f"{code_err}, row index equal {same_index}, "
+          f"{int(c.rows_q.shape[0]) - 1} voxels; seconds {secs}",
+          flush=True)
+    ds = SyntheticDataset(split="test", read_meta=False,
+                          config=SyntheticConfig(img_wh=(64, 64)))
+    moved = BakedField(**{k: v.to(dev) if torch.is_tensor(v) else v
+                          for k, v in vars(c).items()})
+    errs = {}
+    for interp in ("trilinear", "stochastic"):
+        outs, stats = {}, {}
+        for (side, d), bk in zip(sides, (moved, c)):
+            ro, rd = get_rays(torch.as_tensor(ds.directions, device=d),
+                              torch.as_tensor(ds.poses[0], device=d))
+            stats[side] = {}
+            outs[side] = render_baked(bk, None, ro, rd, cfg,
+                                      key=threefry.prng_key(7),
+                                      interp=interp, img_wh=(64, 64),
+                                      stats=stats[side])
+        errs[interp] = {k: float((outs["card"][k].cpu() - outs["cpu"][k])
+                                 .abs().max())
+                        for k in ("rgb", "opacity", "depth")}
+        errs[interp]["rounds"] = (stats["card"]["rounds"],
+                                  stats["cpu"]["rounds"])
+        if not all(torch.isfinite(outs["card"][k]).all()
+                   for k in ("rgb", "opacity", "depth")):
+            raise AssertionError(f"baked {interp}: non-finite render")
+    print(f"baked: card vs CPU render at 64x64 of the CPU's bake: {errs}",
+          flush=True)
+    if rows_err > 1e-4 or max(code_err.values()) > 1 or not same_index:
+        raise AssertionError("card and CPU bakes disagree")
+    for interp, e in errs.items():
+        if max(e[k] for k in ("rgb", "opacity", "depth")) > 1e-4 \
+                or e["rounds"][0] != e["rounds"][1]:
+            raise AssertionError(f"card and CPU baked renders disagree "
+                                 f"({interp})")
+    return {"rows_err": rows_err, "code_err": code_err, "render": errs,
+            "bake_seconds": secs}
+
+
+def baked_phase(state, dev):
+    """The eval entry point with ARNERF_EVAL_BAKED=1 on the train phase's
+    checkpoint at 800x800 (bake at 256^3, 4 views through render_baked),
+    then baked_card_vs_cpu."""
+    import numpy as np
+    ckpt = state["train_ckpt"]
+    val = eval_entry(["--dataset_name", "synthetic", "--downsample", "6.25",
+                      "--ckpt_path", ckpt], "baked", baked=True)
+    state["baked_launches"] = val["launches"]
+    net = state.get("train_summary", {})
+    summary = {"bake_seconds": val["bake_seconds"],
+               "bake_voxels": val["bake_voxels"],
+               "bake_field_rows": val["bake_voxels"] * BAKE_DIRS,
+               "bake_head_launches": val["launches"],
+               "ms_per_view": float(np.mean(val["ms_per_view"][1:])),
+               "rounds_per_bucket": val["rounds_per_bucket"],
+               "psnr": float(np.mean(val["psnr"])),
+               "network_ms_per_view": net.get("ms_per_view"),
+               "network_psnr": net.get("val_psnr")}
+    print(f"baked summary: {summary}", flush=True)
+    state["baked_summary"] = summary
+    if val["launches"] == 0:
+        raise AssertionError("the bake launched no fused-head kernel")
+    if summary["psnr"] <= 17.0:
+        raise AssertionError(f"baked validation PSNR {val['psnr']}")
+    summary["card_vs_cpu"] = baked_card_vs_cpu(ckpt, dev)
+
+
+def lpips_card_vs_cpu(trainer, dev):
+    """Two 800x800 pairs: the nerf capture's first test view rendered by
+    the trained model against its ground truth (near-identical), and the
+    ground truth against itself shifted by 4 pixels (a typical LPIPS).
+    Each on the card, with cuDNN's TF32 allowed around the call as the
+    library's default leaves it (LPIPS must turn it off itself), and on
+    the CPU: within 1e-4 of the CPU's value, relative. The card's ms per
+    pair from CUDA events."""
+    import numpy as np
+    import torch
+    from arnerf_tpu_torch.training import metrics
+    from arnerf_tpu_torch.training.lpips import lpips_distance
+    w, h = trainer.test_dataset.img_wh
+    out = trainer.render_pose(trainer.test_dataset.poses[0])
+    pred = torch.clamp(out["rgb"].reshape(h, w, 3)
+                       + (1 - out["opacity"].reshape(h, w, 1)), 0, 1)
+    gt = torch.as_tensor(trainer.test_dataset.rays[0][:, :3],
+                         device=dev).reshape(h, w, 3)
+    pairs = {"view": (pred, gt),
+             "shifted": (gt, torch.roll(gt, shifts=(4, 4), dims=(0, 1)))}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card = {k: metrics.lpips(a, b) for k, (a, b) in pairs.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    vals = {k: {"card": float(card[k]),
+                "cpu": float(metrics.lpips(a.cpu(), b.cpu()))}
+            for k, (a, b) in pairs.items()}
+    for v in vals.values():
+        v["rel_diff"] = abs(v["card"] - v["cpu"]) / max(abs(v["cpu"]),
+                                                        1e-30)
+    params = metrics._LPIPS_PARAMS[pred.device]
+    ms = _time_ms(lambda: lpips_distance(params, pred, gt), 5)
+    print(f"lpips: {card['view'].label} at {w}x{h}, card (TF32 allowed "
+          f"outside LPIPS) vs CPU: {vals}; {ms:.3f} ms per pair on the card "
+          f"(13 f32 convolutions, no TF32)", flush=True)
+    if not all(np.isfinite(v["card"]) and v["rel_diff"] <= 1e-4
+               for v in vals.values()):
+        raise AssertionError("LPIPS: non-finite, or card and CPU disagree")
+    return {"values": vals, "ms_per_pair": ms, "label": card["view"].label}
 
 
 def _timed_block(trainer, activities=None):
@@ -842,6 +1035,79 @@ def profile_view(ckpt, dev):
                   f"device {e.device_time_total / 1e3:.1f} ms (kernel sum), "
                   f"calls {e.count}")
     _print_kernels(kernels, 12)
+
+
+def profile_baked_view(ckpt, dev):
+    """Where one 800x800 baked view's time goes: the train phase's
+    checkpoint baked at 256^3 in f32 with exact corners (8 hash rows a
+    level, 8x the stochastic bake's gathers), its seconds and its PSNR on
+    the 4 test views (what the eval path's stochastic bake gives up to
+    estimator noise), then one traced view: wall time, device busy time,
+    the spans of rendering_baked.py and the top kernels."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from arnerf_tpu_torch.datasets import dataset_dict
+    from arnerf_tpu_torch.datasets.ray_utils import get_rays
+    from arnerf_tpu_torch.models import NGPConfig, grid_state_init
+    from arnerf_tpu_torch.ops import threefry
+    from arnerf_tpu_torch.rendering_baked import bake_ngp, render_baked
+    from arnerf_tpu_torch.training.ckpt import load_ckpt
+    from arnerf_tpu_torch.training.metrics import psnr
+    cfg = NGPConfig(scale=0.5, fused_head=True)
+    params, state, _ = load_ckpt(ckpt, grid_template=grid_state_init(cfg, dev),
+                                 device=dev)
+    t0 = time.perf_counter()
+    baked = bake_ngp(params, state, cfg, stoch=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ds = dataset_dict["synthetic"](split="test", downsample=6.25,
+                                   device=dev)
+    psnrs = []
+    for i, pose in enumerate(ds.poses):
+        ro, rd = get_rays(torch.as_tensor(ds.directions, device=dev),
+                          torch.as_tensor(pose, device=dev))
+        out = render_baked(baked, state, ro, rd, cfg,
+                           key=threefry.prng_key(i), img_wh=ds.img_wh)
+        pred = torch.clamp(out["rgb"] + (1 - out["opacity"])[:, None], 0, 1)
+        gt = torch.as_tensor(ds.rays[i][:, :3], device=dev)
+        psnrs.append(float(psnr(pred, gt)))
+    print(f"baked: exact-corner bake at 256^3 in {secs:.2f} s, PSNR "
+          f"{psnrs} (mean {np.mean(psnrs):.3f})", flush=True)
+    ro, rd = get_rays(torch.as_tensor(ds.directions, device=dev),
+                      torch.as_tensor(ds.poses[1], device=dev))
+
+    def view():
+        return render_baked(baked, state, ro, rd, cfg,
+                            key=threefry.prng_key(1), img_wh=ds.img_wh)
+
+    view()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        view()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = ("cull", "prelude", "march", "color")
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.name not in spans]
+    if not kernels:
+        print(f"profile[baked]: wall {wall_ms:.1f} ms; device time not "
+              f"measured (the profiler recorded no device events)",
+              flush=True)
+        return
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f"profile[baked]: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
+          f"{len(kernels)} device kernels/copies in the view", flush=True)
+    for e in prof.key_averages():
+        if e.key in spans and e.device_type == DeviceType.CPU:
+            print(f"  span {e.key}: host {e.cpu_time_total / 1e3:.1f} ms, "
+                  f"device {e.device_time_total / 1e3:.1f} ms (kernel sum), "
+                  f"calls {e.count}")
+    _print_kernels(kernels, 10)
 
 
 def _free_port():
@@ -1408,6 +1674,44 @@ def captures_phase(state, dev):
                          f"captures[{name}]")
         state[("capture_eval", name)] = val["launches"]
         steps = counts["step"]
+        more = {}
+        if name == "nerf":
+            # --eval_lpips: the test line's lpips_rand, the launches of the
+            # validation renders it measures, and eval in bf16 beside the
+            # default f32
+            state["lpips_train_launches"] = res["val_launches"]
+            more["lpips"] = res["lpips"]
+            if not res["lpips"] or not np.isfinite(res["lpips"]).all():
+                failures.append(f"nerf: LPIPS missing or non-finite: "
+                                f"{res['lpips']}")
+            v16 = eval_entry(argv + ["--ckpt_path", res["ckpt"],
+                                     "--compute_dtype", "bfloat16"],
+                             "captures[nerf] bf16")
+            state[("capture_eval_bf16", name)] = v16["launches"]
+            more.update(val_psnr_bf16=float(np.mean(v16["psnr"])),
+                        ms_per_view_bf16=float(np.mean(
+                            v16["ms_per_view"][1:])))
+            try:
+                more["lpips_card_vs_cpu"] = lpips_card_vs_cpu(trainer, dev)
+            except AssertionError as e:
+                failures.append(str(e))
+        else:
+            vb = eval_entry(argv + ["--ckpt_path", res["ckpt"]],
+                            "captures[colmap] baked", baked=True)
+            state[("capture_baked", name)] = vb["launches"]
+            more.update(baked_psnr=float(np.mean(vb["psnr"])),
+                        baked_ms_per_view=float(np.mean(
+                            vb["ms_per_view"][1:])),
+                        bake_seconds=vb["bake_seconds"],
+                        bake_voxels=vb["bake_voxels"],
+                        bake_head_launches=vb["launches"],
+                        baked_rounds_per_bucket=vb["rounds_per_bucket"])
+            if vb["launches"] == 0:
+                failures.append("colmap: the bake launched no fused-head "
+                                "kernel")
+            if more["baked_psnr"] <= 17.0:
+                failures.append(f"colmap: baked validation PSNR "
+                                f"{vb['psnr']}")
         summary[name] = {
             "cascades": trainer.cfg.cascades,
             "exp_step_factor": trainer.exp_step_factor,
@@ -1419,7 +1723,7 @@ def captures_phase(state, dev):
             "launches_per_step": {k: counts[k] / steps
                                   for k in ("head", "pack", "exact")},
             "head_launches_per_view": val["launches"]
-            / len(val["ms_per_view"])}
+            / len(val["ms_per_view"]), **more}
         print(f"captures[{name}] summary: {summary[name]}", flush=True)
         bad_loss = [b["loss"] for b in blocks if not np.isfinite(b["loss"])]
         if bad_loss:
@@ -1538,10 +1842,13 @@ def main() -> int:
     phase("train", lambda: run_train(state))
     phase("insert", lambda: insert_phase(state, dev))
     phase("real_updates", lambda: run_real_updates(state, dev))
+    phase("baked", lambda: baked_phase(state, dev))
     phase("reference", reference_phase)
     phase("captures", lambda: captures_phase(state, dev))
     try:   # measurements, not checks: their absence fails nothing
         profile_view(state.get("ckpt") or write_smoke_checkpoint(dev), dev)
+        if "train_ckpt" in state:
+            profile_baked_view(state["train_ckpt"], dev)
         if "trainer" in state:
             profile_train_block(state["trainer"])
         if "insert_insertor" in state:
@@ -1568,12 +1875,22 @@ def main() -> int:
                    "train": train.get("head", 0) if bf16 else 0,
                    "train_validation":
                        state.get("train_val_launches", 0) if bf16 else 0,
-                   "insert": state.get("insert_launches", 0) if bf16 else 0}
-        for name in ("nerf", "colmap"):      # the captures phase, bf16
+                   "insert": state.get("insert_launches", 0) if bf16 else 0,
+                   # the eval entry point bakes in f32 (ARNERF_EVAL_BAKED)
+                   "baked": 0 if bf16 else state.get("baked_launches", 0),
+                   # the --eval_lpips run's validation renders (bf16)
+                   "lpips_train":
+                       state.get("lpips_train_launches", 0) if bf16 else 0}
+        for name in ("nerf", "colmap"):
+            # training runs bf16; eval runs f32 unless asked for bf16
             by_path[f"captures_train_{name}"] = state.get(
                 ("capture_train", name), {}).get("head", 0) if bf16 else 0
-            by_path[f"captures_eval_{name}"] = state.get(
-                ("capture_eval", name), 0) if bf16 else 0
+            by_path[f"captures_eval_{name}"] = 0 if bf16 else state.get(
+                ("capture_eval", name), 0)
+        by_path["captures_eval_nerf_bf16"] = state.get(
+            ("capture_eval_bf16", "nerf"), 0) if bf16 else 0
+        by_path["captures_baked_colmap"] = 0 if bf16 else state.get(
+            ("capture_baked", "colmap"), 0)
         kernels.append({
             "name": f"fused_field_head[{dtype_name}]", "route": "cuda",
             "source": "arnerf_tpu_torch/csrc/fused_head.cu",

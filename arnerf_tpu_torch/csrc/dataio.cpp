@@ -1,6 +1,6 @@
 // Host-side image decoding for the port's dataset loaders, with no library
 // beyond libc, libstdc++ and pthread (the GPU machine has no libpng,
-// libjpeg, OpenCV or PIL). Counterpart of arnerf_tpu/native/dataio.cpp,
+// libjpeg, OpenEXR, OpenCV or PIL). Counterpart of arnerf_tpu/native/dataio.cpp,
 // which links libpng, libjpeg and OpenEXR.
 //
 //  * PNG: the scanline unfilter (filter types 0-4, PNG spec section 9) of a
@@ -11,6 +11,8 @@
 //    upsampling (jdsample.c) and its YCbCr->RGB tables (jdcolor.c), so the
 //    pixels are those libjpeg(-turbo) gives with its default settings, which
 //    is what imageio (through PIL) returns.
+//  * OpenEXR: single-part scanline files with HALF and FLOAT channels, raw,
+//    RLE, or ZIP / ZIPS data that Python's zlib has inflated (exr_decode).
 //  * dataio_decode_batch: a loop over many files on a pool of threads. It is
 //    called through ctypes, which releases the GIL for the call.
 //
@@ -18,6 +20,7 @@
 // -pthread -std=c++17), at first use.
 
 #include <algorithm>
+#include <cmath>
 #include <atomic>
 #include <cstdint>
 #include <cstring>
@@ -738,6 +741,143 @@ struct Jpeg {
   }
 };
 
+
+// ------------------------------------------------------------- OpenEXR ----
+//
+// One single-part scanline OpenEXR image whose header and offset table
+// image_io.py has parsed and whose ZIP / ZIPS chunks it has inflated. The
+// input is a descriptor of little-endian int64 values, then the payloads:
+//   w, h, nc, out_c, lines_per_block, n_chunks,
+//   type[nc]  (0 UINT, 1 HALF, 2 FLOAT; the file's channel order),
+//   dst[nc]   (output channel of each, -1 to skip it),
+//   n_chunks x (first row, codec, payload offset, payload length),
+// codec 0: raw pixel data; 1: RLE; 2: inflated ZIP data, still predicted
+// and interleaved. A chunk's rows hold each channel's w values in turn
+// (OpenEXR file layout, section "Scan Line Data"). RLE and ZIP data are
+// split into even and odd bytes and delta-coded (OpenEXR's
+// ImfRleCompressor.cpp and ImfZip.cpp); this undoes both.
+
+enum {
+  EXR_OK = 0,
+  EXR_CORRUPT = 10,     // a chunk's data does not fill its rows exactly
+  EXR_DESCRIPTOR = 11,  // inconsistent descriptor or output size
+};
+
+float half_to_float(uint16_t v) {
+  const uint32_t s = (uint32_t)(v >> 15) << 31, e = (v >> 10) & 0x1f,
+                 m = v & 0x3ff;
+  uint32_t bits;
+  if (e == 0) {
+    const float x = std::ldexp((float)m, -24);   // zero and subnormals
+    return s ? -x : x;
+  }
+  if (e == 31)
+    bits = s | 0x7f800000u | (m << 13);           // inf and NaN
+  else
+    bits = s | ((e + 112) << 23) | (m << 13);
+  float f;
+  memcpy(&f, &bits, 4);
+  return f;
+}
+
+// OpenEXR's rleUncompress: a negative count byte -n copies n literal
+// bytes, a count n >= 0 repeats the next byte n + 1 times. Returns the
+// bytes written, or -1 if the stream overruns `cap` or the input.
+int64_t rle_uncompress(const uint8_t* in, int64_t n, uint8_t* out,
+                       int64_t cap) {
+  int64_t o = 0, i = 0;
+  while (i < n) {
+    const int count = (int8_t)in[i++];
+    if (count < 0) {
+      if (i - count > n || o - count > cap) return -1;
+      memcpy(out + o, in + i, -count);
+      i -= count;
+      o -= count;
+    } else {
+      if (i >= n || o + count + 1 > cap) return -1;
+      memset(out + o, in[i++], count + 1);
+      o += count + 1;
+    }
+  }
+  return o;
+}
+
+// Undo the delta predictor, then the split into even and odd bytes.
+void exr_unpredict(uint8_t* tmp, int64_t n, uint8_t* out) {
+  for (int64_t i = 1; i < n; i++)
+    tmp[i] = (uint8_t)(tmp[i - 1] + tmp[i] - 128);
+  const uint8_t* t1 = tmp;
+  const uint8_t* t2 = tmp + (n + 1) / 2;
+  for (int64_t i = 0; i < n; i++) out[i] = (i & 1) ? *t2++ : *t1++;
+}
+
+int exr_decode(const uint8_t* data, int64_t n, float* out, int64_t out_len) {
+  const int64_t* d = (const int64_t*)data;
+  if (n < 6 * 8) return EXR_DESCRIPTOR;
+  const int64_t w = d[0], h = d[1], nc = d[2], out_c = d[3], lpb = d[4],
+                n_chunks = d[5];
+  if (w <= 0 || h <= 0 || nc <= 0 || nc > 1024 || lpb <= 0 ||
+      n_chunks < 0 || n < (6 + 2 * nc + 4 * n_chunks) * 8 ||
+      out_len != w * h * out_c * 4)
+    return EXR_DESCRIPTOR;
+  const int64_t* types = d + 6;
+  const int64_t* dst = types + nc;
+  const int64_t* chunks = dst + nc;
+  int64_t row_bytes = 0;
+  for (int64_t c = 0; c < nc; c++) {
+    if (types[c] < 0 || types[c] > 2 || dst[c] >= out_c) return EXR_DESCRIPTOR;
+    row_bytes += w * (types[c] == 1 ? 2 : 4);
+  }
+  std::vector<uint8_t> tmp, raw;
+  for (int64_t k = 0; k < n_chunks; k++) {
+    const int64_t row0 = chunks[4 * k], codec = chunks[4 * k + 1],
+                  off = chunks[4 * k + 2], len = chunks[4 * k + 3];
+    if (row0 < 0 || row0 >= h || off < 0 || len < 0 || off + len > n)
+      return EXR_DESCRIPTOR;
+    const int64_t rows = std::min(lpb, h - row0);
+    const int64_t size = rows * row_bytes;
+    const uint8_t* src = data + off;
+    if (codec == 0 || codec == 2) {
+      if (len != size) return EXR_CORRUPT;
+    } else if (codec != 1) {
+      return EXR_DESCRIPTOR;
+    }
+    if (codec != 0) {
+      tmp.resize(size);
+      raw.resize(size);
+      if (codec == 1) {
+        if (rle_uncompress(src, len, tmp.data(), size) != size)
+          return EXR_CORRUPT;
+      } else {
+        memcpy(tmp.data(), src, size);
+      }
+      exr_unpredict(tmp.data(), size, raw.data());
+      src = raw.data();
+    }
+    for (int64_t r = 0; r < rows; r++) {
+      float* o = out + (row0 + r) * w * out_c;
+      for (int64_t c = 0; c < nc; c++) {
+        const int64_t sz = types[c] == 1 ? 2 : 4;
+        if (dst[c] >= 0) {
+          for (int64_t x = 0; x < w; x++) {
+            float v;
+            if (sz == 2) {
+              uint16_t hv;
+              memcpy(&hv, src + 2 * x, 2);
+              v = half_to_float(hv);
+            } else {
+              memcpy(&v, src + 4 * x, 4);
+            }
+            o[x * out_c + dst[c]] = v;
+          }
+        }
+        src += w * sz;
+      }
+    }
+  }
+  return EXR_OK;
+}
+
 }  // namespace
 
 extern "C" {
@@ -774,7 +914,8 @@ int dataio_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
 }
 
 // Decode n items on n_threads threads (0: the hardware's count). kinds[i]:
-// 0 = PNG unfilter (params[3i..3i+2] = h, rowbytes, bpp), 1 = JPEG. The
+// 0 = PNG unfilter (params[3i..3i+2] = h, rowbytes, bpp), 1 = JPEG, 2 =
+// OpenEXR (exr_decode's input; out_lens[i] in bytes). The
 // status of each item goes to status[i]; returns the number that failed.
 int dataio_decode_batch(int n, const int* kinds, const uint8_t* const* ins,
                         const int64_t* in_lens, uint8_t* const* outs,
@@ -790,8 +931,10 @@ int dataio_decode_batch(int n, const int* kinds, const uint8_t* const* ins,
       if (kinds[i] == 0)
         st = png_unfilter(ins[i], in_lens[i], outs[i], (int)params[3 * i],
                           params[3 * i + 1], (int)params[3 * i + 2]);
-      else
+      else if (kinds[i] == 1)
         st = dataio_jpeg_decode(ins[i], in_lens[i], outs[i], out_lens[i]);
+      else
+        st = exr_decode(ins[i], in_lens[i], (float*)outs[i], out_lens[i]);
       status[i] = st;
       if (st) failed++;
     }

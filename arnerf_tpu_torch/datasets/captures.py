@@ -9,11 +9,23 @@ formats, for runs of the file loaders without a downloaded dataset.
   ships: `sparse/0/{cameras,images,points3D}.bin` (one PINHOLE camera, the
   views' world-to-camera poses, points sampled on the analytic surface) and
   3-channel PNGs of the scene on black, the unbounded convention.
+* `write_colmap_exr_capture`: the same cameras as a `colmap_exr` scene: the
+  reference's `train_r_<i>_<k>.png` names in images.bin and the frames as
+  `train_hdr/hdr_<i>.exr`: HDR radiance, the scene's times HDR_GAIN (so
+  that a share of the pixels exceeds 1) in front of a background of
+  radiance 1, which the bounded defaults (--scale 0.5) train against.
+* `write_myblender_capture`: a `myblender` scene: `int.txt`, `exts.npy`
+  (world-to-camera) and `img/*.exr` of the same HDR radiance.
+* `write_hdr_nerf_capture`: HDR-NeRF's synthetic layout for `colmap` with
+  exposures (`HDR-NeRF/syndata/<scene>/`): 35 views, LDR PNGs of that HDR
+  radiance at the scene's five exposures through a gamma camera curve.
 
 The scene (`synthetic.py`'s at scale 0.5) is rendered by
 `render_analytic` on `device`; PNG rows are filtered with types 0-4 in
-rotation, so a reader meets every filter. Both return the uint8 images
-written, in file order, so a caller can check what a loader decodes.
+rotation, so a reader meets every filter; OpenEXR files are written with
+image_io.write_exr (HALF, ZIP). Each returns the images written (uint8
+PNG pixels, or the float32 radiance before HALF rounding), in file order,
+so a caller can check what a loader decodes.
 """
 
 import json
@@ -24,13 +36,16 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..image_io import write_png
+from ..image_io import write_exr, write_png
+from .colmap import _EXPOSURES
 from .colmap_utils import rotmat2qvec
 from .ray_utils import get_ray_directions, get_rays, look_at_pose
 from .synthetic import analytic_rgb, analytic_sigma, render_analytic
 
 SCALE = 0.5                     # the analytic scene's half-size
 FILTERS = (0, 1, 2, 3, 4)       # PNG filter types, row by row in rotation
+HDR_GAIN = 4.0                  # radiance scale of the HDR captures
+HDR_NERF_SCENE = "bathroom"     # exposures 1/8 * 4^k (datasets/colmap.py)
 
 
 def _render(pose, dirs, n_samples, chunk=1 << 16):
@@ -50,11 +65,17 @@ def _to_uint8(x):
     return np.round(np.clip(x, 0.0, 1.0) * 255).astype(np.uint8)
 
 
-def _write_all(jobs):
+def _write_all(jobs, exr=False):
     """Write (path, image) pairs in parallel (zlib and numpy release the
-    GIL)."""
+    GIL): PNGs, or OpenEXR files if `exr`."""
+    def one(job):
+        if exr:
+            write_exr(*job)
+        else:
+            write_png(job[0], job[1], FILTERS)
+
     with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
-        list(pool.map(lambda j: write_png(j[0], j[1], FILTERS), jobs))
+        list(pool.map(one, jobs))
 
 
 def write_blender_capture(root, n_train=100, n_test=8, wh=800,
@@ -117,48 +138,138 @@ def surface_points(n, device="cpu"):
             torch.cat(cols)[:n].cpu().numpy())
 
 
+def _ring_views(n_views, wh, focal, n_samples, device, seed=5):
+    """Cameras on a ring of radius 1.2 at varying heights looking at the
+    origin, and their renders: (K, [c2w], [(h, w, 3) float64 radiance on
+    black], [(h, w, 1) opacity])."""
+    w, h = wh
+    K = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]],
+                 np.float32)
+    dirs = torch.as_tensor(get_ray_directions(h, w, K), device=device)
+    rng = np.random.default_rng(seed)
+    poses, images, opacity = [], [], []
+    for i in range(n_views):
+        th = 2 * np.pi * i / n_views
+        eye = np.array([1.2 * np.cos(th), rng.uniform(-0.72, 0.12),
+                        1.2 * np.sin(th)])
+        c2w = look_at_pose(eye)
+        rgb, opa = _render(c2w, dirs, n_samples)
+        poses.append(c2w)
+        images.append(rgb.reshape(h, w, 3))
+        opacity.append(opa.reshape(h, w, 1))
+    return K, poses, images, opacity
+
+
+def _hdr(images, opacity):
+    """HDR radiance: the scene's times HDR_GAIN over a background of
+    radiance 1, float32."""
+    return [(rgb * HDR_GAIN + (1 - opa)).astype(np.float32)
+            for rgb, opa in zip(images, opacity)]
+
+
+def _write_sparse(root, names, poses, wh, focal, n_points, device):
+    """sparse/0/{cameras,images,points3D}.bin: one PINHOLE camera, the
+    views' world-to-camera poses under `names`, points on the surface."""
+    w, h = wh
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse, exist_ok=True)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1) + struct.pack("<iiQQ", 1, 1, w, h)
+                + struct.pack("<dddd", focal, focal, w / 2, h / 2))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(poses)))
+        for i, (name, c2w) in enumerate(zip(names, poses)):
+            bottom = np.array([[0, 0, 0, 1.0]])
+            w2c = np.linalg.inv(np.concatenate(
+                [np.asarray(c2w, np.float64), bottom]))
+            f.write(struct.pack("<idddddddi", i + 1,
+                                *rotmat2qvec(w2c[:3, :3]), *w2c[:3, 3], 1))
+            f.write(name.encode() + b"\0" + struct.pack("<Q", 0))
+    pts, cols = surface_points(n_points, device)
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(pts)))
+        for i, (p, c) in enumerate(zip(pts, _to_uint8(cols))):
+            f.write(struct.pack("<QdddBBBdQ", i + 1, *p, *c, 0.5, 0))
+
+
 def write_colmap_capture(root, n_views=64, wh=(1240, 824), focal=1100.0,
                          n_points=4096, n_samples=512, device="cpu"):
     """COLMAP-format capture of the analytic scene on black (see the
     module's docstring): cameras on a ring of radius 1.2 at varying
     heights, looking at the origin. Returns [uint8 (h, w, 3) images] in
     name order."""
-    w, h = wh
-    K = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]],
-                 np.float32)
-    dirs = torch.as_tensor(get_ray_directions(h, w, K), device=device)
-    sparse = os.path.join(root, "sparse", "0")
-    os.makedirs(sparse, exist_ok=True)
+    _, poses, images, _ = _ring_views(n_views, wh, focal, n_samples, device)
+    names = [f"img_{i:03d}.png" for i in range(n_views)]
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
-    rng = np.random.default_rng(5)
-    jobs, poses = [], []
-    for i in range(n_views):
-        th = 2 * np.pi * i / n_views
-        eye = np.array([1.2 * np.cos(th), rng.uniform(-0.72, 0.12),
-                        1.2 * np.sin(th)])
-        c2w = look_at_pose(eye)
-        rgb, _ = _render(c2w, dirs, n_samples)
-        jobs.append((os.path.join(root, "images", f"img_{i:03d}.png"),
-                     _to_uint8(rgb).reshape(h, w, 3)))
-        poses.append(c2w)
+    jobs = [(os.path.join(root, "images", n), _to_uint8(img))
+            for n, img in zip(names, images)]
     _write_all(jobs)
-
-    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
-        f.write(struct.pack("<Q", 1) + struct.pack("<iiQQ", 1, 1, w, h)
-                + struct.pack("<dddd", focal, focal, w / 2, h / 2))
-    with open(os.path.join(sparse, "images.bin"), "wb") as f:
-        f.write(struct.pack("<Q", n_views))
-        for i, c2w in enumerate(poses):
-            bottom = np.array([[0, 0, 0, 1.0]])
-            w2c = np.linalg.inv(np.concatenate(
-                [np.asarray(c2w, np.float64), bottom]))
-            f.write(struct.pack("<idddddddi", i + 1,
-                                *rotmat2qvec(w2c[:3, :3]), *w2c[:3, 3], 1))
-            f.write(f"img_{i:03d}.png".encode() + b"\0"
-                    + struct.pack("<Q", 0))
-    pts, cols = surface_points(n_points, device)
-    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
-        f.write(struct.pack("<Q", len(pts)))
-        for i, (p, c) in enumerate(zip(pts, _to_uint8(cols))):
-            f.write(struct.pack("<QdddBBBdQ", i + 1, *p, *c, 0.5, 0))
+    _write_sparse(root, names, poses, wh, focal, n_points, device)
     return [img for _, img in jobs]
+
+
+def write_colmap_exr_capture(root, n_views=64, wh=(800, 600), focal=700.0,
+                             n_points=4096, n_samples=512, device="cpu"):
+    """`colmap_exr` capture: write_colmap_capture's cameras with the
+    reference's names (train_r_<i>_0.png in images.bin, the frames as
+    train_hdr/hdr_<i>.exr) and HDR radiance (`_hdr`). Returns [float32
+    (h, w, 3) radiance] in name order."""
+    _, poses, images, opacity = _ring_views(n_views, wh, focal, n_samples,
+                                            device)
+    os.makedirs(os.path.join(root, "train_hdr"), exist_ok=True)
+    jobs = [(os.path.join(root, "train_hdr", f"hdr_{i:03d}.exr"), img)
+            for i, img in enumerate(_hdr(images, opacity))]
+    _write_all(jobs, exr=True)
+    _write_sparse(root, [f"train_r_{i}_0.png" for i in range(n_views)],
+                  poses, wh, focal, n_points, device)
+    return [img for _, img in jobs]
+
+
+def write_myblender_capture(root, n_views=32, wh=(400, 300), focal=350.0,
+                            n_samples=512, device="cpu"):
+    """`myblender` capture: int.txt (K; the loader takes the image size as
+    twice the principal point), exts.npy ((n, 3, 4) world-to-camera) and
+    img/<i>.exr of HDR radiance (`_hdr`). Returns [float32 (h, w, 3)
+    radiance] in file order."""
+    K, poses, images, opacity = _ring_views(n_views, wh, focal, n_samples,
+                                            device, seed=6)
+    os.makedirs(os.path.join(root, "img"), exist_ok=True)
+    np.savetxt(os.path.join(root, "int.txt"), K)
+    np.save(os.path.join(root, "exts.npy"), np.stack(
+        [np.linalg.inv(np.concatenate([c2w, [[0, 0, 0, 1.0]]]))[:3]
+         for c2w in poses]))
+    jobs = [(os.path.join(root, "img", f"{i:03d}.exr"), img)
+            for i, img in enumerate(_hdr(images, opacity))]
+    _write_all(jobs, exr=True)
+    return [img for _, img in jobs]
+
+
+def write_hdr_nerf_capture(parent, wh=(400, 400), focal=350.0,
+                           n_points=4096, n_samples=512, device="cpu"):
+    """HDR-NeRF's synthetic layout under parent/HDR-NeRF/syndata/<scene>
+    (the colmap loader's `_hdr_nerf_split`): 35 views, the first 17 the
+    test views (exposures 1 and 3), the last 18 the training views
+    (exposures 0, 2 and 4), as `<view>_<k>.png`: HDR radiance (`_hdr`)
+    times the scene's k-th exposure through a gamma-2.2 camera curve,
+    clipped. Returns
+    the root, as an absolute path, and {split: [uint8 images]} in file
+    order. The loader reads a file's exposure index as the last character
+    before the path's first '.', so the path must hold no other '.'."""
+    root = os.path.join(os.path.abspath(parent), "HDR-NeRF", "syndata",
+                        HDR_NERF_SCENE)
+    _, poses, images, opacity = _ring_views(35, wh, focal, n_samples,
+                                            device, seed=7)
+    exposures = _EXPOSURES[HDR_NERF_SCENE]
+    jobs = {"test": [], "train": []}
+    for i, img in enumerate(_hdr(images, opacity)):
+        split, ks = ("test", (1, 3)) if i < 17 else ("train", (0, 2, 4))
+        for k in ks:
+            jobs[split].append((
+                os.path.join(root, split, f"{i:03d}_{k}.png"),
+                _to_uint8((img * exposures[k]) ** (1 / 2.2))))
+    for split in jobs:
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        _write_all(jobs[split])
+    _write_sparse(root, [f"{i:03d}.png" for i in range(35)], poses, wh,
+                  focal, n_points, device)
+    return root, {k: [img for _, img in v] for k, v in jobs.items()}

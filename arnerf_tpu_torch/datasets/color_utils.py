@@ -1,12 +1,15 @@
 """Image reading and colour-space helpers (port of
 arnerf_tpu/datasets/color_utils.py; reference datasets/color_utils.py).
 
-The JAX package reads with imageio and resizes with OpenCV, or takes its
-native libpng/libjpeg decoder when that is built. The port has one path:
-the files are decoded by its own native decoder (image_io.imread_many, the
-arrays imageio gives) and then follow imageio's conventions in numpy:
+The JAX package reads with imageio (OpenEXR files with OpenCV) and resizes
+with OpenCV, or takes its native libpng/libjpeg decoder when that is built.
+The port has one path: the files are decoded by its own native decoder
+(image_io.imread_many, the arrays imageio gives; image_io.read_exr_many for
+OpenEXR) and then follow the JAX package's conventions in numpy. LDR:
 values divided by 255 whatever the bit depth, gray repeated to 3 channels,
-alpha blended to white or premultiplied, then OpenCV's INTER_LINEAR resize.
+alpha blended to white or premultiplied. EXR: linear values as stored,
+RGBA premultiplied (rgb * a) whatever `blend_a` says. Then OpenCV's
+INTER_LINEAR resize.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -14,11 +17,9 @@ import os
 
 import numpy as np
 
-from ..image_io import imread, imread_many
+from ..image_io import imread, imread_many, read_exr, read_exr_many
 
 READ_CHUNK = 64
-EXR_MISSING = ("EXR images need an OpenEXR reader, which comes with the "
-               "HDR heads (ROADMAP queue 1, items 5-6)")
 
 
 def srgb_to_linear(img):
@@ -75,29 +76,40 @@ def _to_rays(img, img_wh, blend_a):
     return img.reshape(-1, img.shape[-1]).astype(np.float32)
 
 
+def _exr_to_rays(img, img_wh):
+    """A decoded OpenEXR image (H, W, 3|4) -> (H*W, 3) float32 as the JAX
+    read_image(exr_file=True) makes it from OpenCV's: RGBA premultiplied,
+    then resized."""
+    if img.shape[2] == 4:
+        img = img[..., :3] * img[..., 3:]
+    img = resize_linear(img, img_wh)
+    return img.reshape(-1, 3).astype(np.float32)
+
+
 def read_image(img_path, img_wh, blend_a=True, exr_file=False):
     """Load an image to a flattened (H*W, C) float32 array: [0, 1] (or
     above, for 16-bit files) with alpha blended to white (blend_a) or
-    premultiplied."""
+    premultiplied; exr_file: an OpenEXR file's linear RGB, premultiplied
+    by its alpha."""
     if exr_file:
-        raise NotImplementedError(f"{img_path}: {EXR_MISSING}")
+        return _exr_to_rays(read_exr(img_path), img_wh)
     return _to_rays(imread(img_path), img_wh, blend_a)
 
 
 def read_images(img_paths, img_wh, blend_a=True, exr_file=False):
     """Batch image read -> (n, W*H, 3) float32, decoded in parallel,
     READ_CHUNK files at a time (bounds the decoded bytes held at once)."""
-    if exr_file:
-        raise NotImplementedError(EXR_MISSING)
     w, h = img_wh
     out = np.empty((len(img_paths), w * h, 3), np.float32)
 
     def convert(i_img):
         i, img = i_img
-        out[i] = _to_rays(img, img_wh, blend_a)[:, :3]
+        out[i] = _exr_to_rays(img, img_wh) if exr_file \
+            else _to_rays(img, img_wh, blend_a)[:, :3]
 
+    read_many = read_exr_many if exr_file else imread_many
     with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
         for start in range(0, len(img_paths), READ_CHUNK):
-            imgs = imread_many(img_paths[start:start + READ_CHUNK])
+            imgs = read_many(img_paths[start:start + READ_CHUNK])
             list(pool.map(convert, enumerate(imgs, start)))
     return out

@@ -13,10 +13,15 @@ versions. Checkpoints are the JAX package's .npz layout. --mesh queries
 the density at 256^3 points and runs marching tetrahedra on the same
 device.
 
+--use_exposure and --use_EXR build the HDR heads' model as the JAX
+eval.py:52-55 does (rgb_act None; --use_EXR raw HDR radiance); the views
+are rendered as in training (tonemapped at unit exposure, or the raw
+radiance through a leaky ReLU) and clipped to [0, 1] before PSNR.
+
 ARNERF_EVAL_BAKED=1 bakes the field (rendering_baked.bake_ngp, 256^3
 voxels a cascade) and renders the views through render_baked instead of
 the network; the bake time is printed before the FPS line. As in the JAX
-eval, only LDR (Sigmoid) models bake.
+eval, only LDR (Sigmoid) models bake; HDR models render the network.
 """
 
 import os

@@ -1,17 +1,24 @@
 """Image files without an image library (the GPU machine has neither OpenCV
-nor PIL nor imageio).
+nor PIL nor imageio nor OpenEXR).
 
-Writers in numpy: 8-bit PNG and uncompressed float OpenEXR. Readers: PNG
-(colour types 0, 2, 3, 4 and 6; depths 1, 2, 4, 8 and 16; `tRNS` accepted)
-and baseline / extended sequential JPEG, each returning the array that
-`imageio.v2.imread` returns for the file: 16-bit RGB(A) reduced to its high
-bytes, 16-bit gray+alpha as 8-bit RGBA, 1-bit gray as bool, 2- and 4-bit gray
-scaled to 0-255, palette images as RGB, `tRNS`, gamma and EXIF orientation
-ignored. The PNG stream is inflated by Python's zlib; the unfilter and the
-JPEG decoder are the port's native code (csrc/dataio.cpp, built at first
-use), which runs many files on a pool of threads without the GIL.
-Adam7-interlaced PNGs and progressive, lossless, arithmetic-coded or CMYK
-JPEGs raise, naming the file.
+Writers in numpy: 8-bit PNG, and OpenEXR as OpenEXR's RGB interface writes
+it (HALF channels, ZIP). Readers: PNG (colour types 0, 2, 3, 4 and 6;
+depths 1, 2, 4, 8 and 16; `tRNS` accepted) and baseline / extended
+sequential JPEG, each returning the array that `imageio.v2.imread` returns
+for the file: 16-bit RGB(A) reduced to its high bytes, 16-bit gray+alpha as
+8-bit RGBA, 1-bit gray as bool, 2- and 4-bit gray scaled to 0-255, palette
+images as RGB, `tRNS`, gamma and EXIF orientation ignored. And OpenEXR:
+single-part scanline files with R, G, B (and A) channels of type HALF or
+FLOAT, compressed with NONE, RLE, ZIPS or ZIP, in either line order and
+with any data window, read as float32 (H, W, 3|4) in RGB(A) order, the
+values of the file's data window. The PNG and ZIP streams are inflated by
+Python's zlib; the unfilter, the JPEG decoder and the EXR chunk decoding
+(RLE, the byte predictor, HALF to float) are the port's native code
+(csrc/dataio.cpp, built at first use), which runs many files on a pool of
+threads without the GIL. Adam7-interlaced PNGs, progressive, lossless,
+arithmetic-coded or CMYK JPEGs, and tiled, multi-part or deep OpenEXR
+files, other EXR compressions (PIZ, PXR24, B44(A), DWAA/B) and EXR files
+without R, G and B raise, naming the file and what it found.
 """
 
 import ctypes
@@ -92,18 +99,42 @@ def _attr(name, kind, value: bytes) -> bytes:
         + struct.pack("<i", len(value)) + value
 
 
+EXR_MAGIC = b"\x76\x2f\x31\x01"
+# compression codes of the file format, and the scanlines of one chunk for
+# those the port reads
+EXR_CODECS = ("NONE", "RLE", "ZIPS", "ZIP", "PIZ", "PXR24", "B44", "B44A",
+              "DWAA", "DWAB")
+_EXR_LINES = {0: 1, 1: 1, 2: 1, 3: 16}
+_EXR_TYPES = {0: "UINT", 1: "HALF", 2: "FLOAT"}
+_EXR_ERRORS = {10: "corrupt OpenEXR chunk (its data does not fill its "
+                   "scanlines)",
+               11: "inconsistent OpenEXR chunk layout"}
+
+
+def _exr_predict(raw: bytes) -> bytes:
+    """OpenEXR's ZIP/RLE preprocessing: the even bytes, then the odd ones,
+    delta-coded (ImfZip.cpp)."""
+    b = np.frombuffer(raw, np.uint8)
+    t = np.concatenate([b[0::2], b[1::2]]).astype(np.int16)
+    d = t.copy()
+    d[1:] = (t[1:] - t[:-1] + 128) & 0xFF
+    return d.astype(np.uint8).tobytes()
+
+
 def write_exr(path, img):
-    """img: (H, W, 3) float RGB -> a single-part scanline OpenEXR file,
-    uncompressed, 32-bit FLOAT channels B, G, R (the file format's
-    alphabetical channel order), one scanline per block."""
+    """img: (H, W, 3) float RGB -> a single-part scanline OpenEXR file as
+    OpenEXR's RgbaOutputFile writes RGB by default: HALF channels B, G, R
+    (the format's alphabetical order), ZIP compression in chunks of 16
+    scanlines, a chunk that does not shrink stored raw. Values beyond
+    HALF's range become infinities, as OpenEXR's conversion makes them."""
     img = np.asarray(img, np.float32)
     h, w = img.shape[:2]
-    chlist = b"".join(c + b"\0" + struct.pack("<iB3xii", 2, 0, 1, 1)
+    chlist = b"".join(c + b"\0" + struct.pack("<iB3xii", 1, 0, 1, 1)
                       for c in (b"B", b"G", b"R")) + b"\0"
     box = struct.pack("<iiii", 0, 0, w - 1, h - 1)
-    header = (b"\x76\x2f\x31\x01" + struct.pack("<i", 2)
+    header = (EXR_MAGIC + struct.pack("<i", 2)
               + _attr("channels", "chlist", chlist)
-              + _attr("compression", "compression", b"\0")
+              + _attr("compression", "compression", b"\3")
               + _attr("dataWindow", "box2i", box)
               + _attr("displayWindow", "box2i", box)
               + _attr("lineOrder", "lineOrder", b"\0")
@@ -111,16 +142,20 @@ def write_exr(path, img):
               + _attr("screenWindowCenter", "v2f", struct.pack("<ff", 0, 0))
               + _attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
               + b"\0")
-    row_bytes = 3 * w * 4
-    first = len(header) + 8 * h
-    offsets = first + np.arange(h, dtype=np.uint64) * (8 + row_bytes)
-    # per block: y, byte count, then each channel's scanline (B, G, R)
-    planar = np.ascontiguousarray(img[:, :, ::-1].transpose(0, 2, 1))
+    # per scanline: each channel's w values (B, G, R)
+    with np.errstate(over="ignore"):
+        planar = np.ascontiguousarray(
+            img[:, :, ::-1].transpose(0, 2, 1)).astype("<f2")
+    chunks = []
+    for y in range(0, h, 16):
+        raw = planar[y:y + 16].tobytes()
+        packed = zlib.compress(_exr_predict(raw), 6)
+        chunks.append(struct.pack("<ii", y, min(len(packed), len(raw)))
+                      + (packed if len(packed) < len(raw) else raw))
+    offsets = len(header) + 8 * len(chunks) + np.cumsum(
+        [0] + [len(c) for c in chunks[:-1]], dtype=np.uint64)
     with open(path, "wb") as f:
-        f.write(header + offsets.astype("<u8").tobytes())
-        for y in range(h):
-            f.write(struct.pack("<ii", y, row_bytes)
-                    + planar[y].astype("<f4").tobytes())
+        f.write(header + offsets.astype("<u8").tobytes() + b"".join(chunks))
 
 
 # ------------------------------------------------------------- readers ---
@@ -245,6 +280,122 @@ def _jpeg_header(path, buf):
     return w.value, h.value, c.value
 
 
+def _cstring(buf, pos, path):
+    end = buf.find(b"\0", pos)
+    if end < 0:
+        raise ValueError(f"{path}: truncated OpenEXR header")
+    return buf[pos:end].decode("latin-1"), end + 1
+
+
+def _parse_exr(path, buf):
+    """Header fields and offset table of a single-part scanline OpenEXR
+    file; raises for what the reader does not take."""
+    if buf[:4] != EXR_MAGIC:
+        raise ValueError(f"{path}: not an OpenEXR file")
+    version = struct.unpack_from("<I", buf, 4)[0]
+    if version & 0xFF != 2:
+        raise ValueError(f"{path}: OpenEXR format version {version & 0xFF} "
+                         f"is not supported")
+    for bit, kind in ((0x1000, "multi-part"), (0x800, "deep"),
+                      (0x200, "tiled")):
+        if version & bit:
+            raise ValueError(f"{path}: {kind} OpenEXR files are not "
+                             f"supported, only single-part scanline images")
+    pos, attrs = 8, {}
+    while True:
+        if pos >= len(buf):
+            raise ValueError(f"{path}: truncated OpenEXR header")
+        if buf[pos] == 0:
+            pos += 1
+            break
+        name, pos = _cstring(buf, pos, path)
+        _, pos = _cstring(buf, pos, path)
+        size = struct.unpack_from("<i", buf, pos)[0]
+        attrs[name] = buf[pos + 4:pos + 4 + size]
+        pos += 4 + size
+    for name in ("channels", "compression", "dataWindow"):
+        if name not in attrs:
+            raise ValueError(f"{path}: OpenEXR header without {name}")
+    comp = attrs["compression"][0]
+    if comp not in _EXR_LINES:
+        found = EXR_CODECS[comp] if comp < len(EXR_CODECS) else comp
+        raise ValueError(f"{path}: OpenEXR {found} compression is not "
+                         f"supported, only NONE, RLE, ZIPS and ZIP")
+    chlist, p, channels = attrs["channels"], 0, []
+    while p < len(chlist) and chlist[p] != 0:
+        name, p = _cstring(chlist, p, path)
+        ptype, xs, ys = struct.unpack_from("<i4xii", chlist, p)
+        p += 16
+        if (xs, ys) != (1, 1):
+            raise ValueError(f"{path}: OpenEXR channel {name} is subsampled "
+                             f"({xs}, {ys})")
+        channels.append((name, ptype))
+    names = [c for c, _ in channels]
+    if not {"R", "G", "B"} <= set(names):
+        raise ValueError(f"{path}: OpenEXR channels {names} lack R, G or "
+                         f"B; only RGB and RGBA images are supported")
+    for name, ptype in channels:
+        if name in ("R", "G", "B", "A") and ptype not in (1, 2):
+            raise ValueError(f"{path}: OpenEXR channel {name} is of type "
+                             f"{_EXR_TYPES.get(ptype, ptype)}; colour "
+                             f"channels must be HALF or FLOAT")
+    xmin, ymin, xmax, ymax = struct.unpack("<iiii", attrs["dataWindow"])
+    w, h = xmax - xmin + 1, ymax - ymin + 1
+    n_chunks = -(-h // _EXR_LINES[comp])
+    if w <= 0 or h <= 0 or pos + 8 * n_chunks > len(buf):
+        raise ValueError(f"{path}: truncated or empty OpenEXR file")
+    offsets = np.frombuffer(buf, "<u8", n_chunks, pos).astype(np.int64)
+    return {"w": w, "h": h, "ymin": ymin, "comp": comp,
+            "channels": channels, "offsets": offsets}
+
+
+def _prepare_exr(path):
+    """Read one OpenEXR file and make its decoder job: the descriptor of
+    csrc/dataio.cpp's exr_decode, then the chunks (ZIP: inflated here)."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    info = _parse_exr(path, buf)
+    w, h, comp = info["w"], info["h"], info["comp"]
+    lines = _EXR_LINES[comp]
+    types = [t for _, t in info["channels"]]
+    out_c = 4 if "A" in [c for c, _ in info["channels"]] else 3
+    dst = ["RGBA".index(c) if c in ("R", "G", "B", "A") else -1
+           for c, _ in info["channels"]]
+    row_bytes = sum(w * (2 if t == 1 else 4) for t in types)
+    n_chunks = len(info["offsets"])
+    pos = 8 * (6 + 2 * len(types) + 4 * n_chunks)
+    entries, payloads = [], []
+    for off in info["offsets"]:
+        if off <= 0 or off + 8 > len(buf):
+            raise ValueError(f"{path}: incomplete OpenEXR file (chunk "
+                             f"offset {off})")
+        y, size = struct.unpack_from("<ii", buf, off)
+        row0 = y - info["ymin"]
+        data = buf[off + 8:off + 8 + size]
+        if not 0 <= row0 < h or row0 % lines or size < 0 \
+                or len(data) != size:
+            raise ValueError(f"{path}: corrupt OpenEXR chunk at scanline {y}")
+        raw_size = min(lines, h - row0) * row_bytes
+        if comp == 0 or size == raw_size:     # stored raw
+            codec = 0
+        elif comp == 1:
+            codec = 1
+        else:
+            codec = 2
+            try:
+                data = zlib.decompress(data)
+            except zlib.error as e:
+                raise ValueError(f"{path}: corrupt OpenEXR ZIP chunk at "
+                                 f"scanline {y} ({e})") from None
+        entries += [row0, codec, pos, len(data)]
+        payloads.append(data)
+        pos += len(data)
+    desc = np.array([w, h, len(types), out_c, lines, n_chunks, *types, *dst,
+                     *entries], "<i8")
+    return _Job(path, 2, desc.tobytes() + b"".join(payloads),
+                np.empty((h, w, out_c), np.float32))
+
+
 def _decode(jobs, n_threads):
     """Run the jobs' native decoding in one call on n_threads threads."""
     n = len(jobs)
@@ -257,24 +408,31 @@ def _decode(jobs, n_threads):
         n, arr(ctypes.c_int, [j.kind for j in jobs]), ins,
         arr(ctypes.c_int64, [len(j.data) for j in jobs]),
         arr(ctypes.c_void_p, [j.out.ctypes.data for j in jobs]),
-        arr(ctypes.c_int64, [j.out.size for j in jobs]),
+        arr(ctypes.c_int64, [j.out.nbytes for j in jobs]),
         (ctypes.c_int64 * (3 * n))(*[v for j in jobs for v in j.params]),
         status, n_threads)
     for j, st in zip(jobs, status):
         if st:
-            msg = (_JPEG_ERRORS.get(st, st) if j.kind else
-                   "corrupt PNG scanline (unknown filter type)")
+            msg = ("corrupt PNG scanline (unknown filter type)"
+                   if j.kind == 0 else _JPEG_ERRORS.get(st, st)
+                   if j.kind == 1 else _EXR_ERRORS.get(st, st))
             raise ValueError(f"{j.path}: {msg}")
+
+
+def _read_many(paths, prepare):
+    """Prepare (read, inflate) the files on a pool of threads, one a core,
+    decode them in one native call, and return their arrays."""
+    n_threads = os.cpu_count() or 1
+    with ThreadPoolExecutor(n_threads) as pool:
+        jobs = list(pool.map(prepare, paths))
+        _decode(jobs, n_threads)
+        return list(pool.map(_Job.pixels, jobs))
 
 
 def imread_many(paths):
     """The arrays `imageio.v2.imread` gives for many PNG / JPEG files; the
     files are read, inflated and decoded in parallel, one thread a core."""
-    n_threads = os.cpu_count() or 1
-    with ThreadPoolExecutor(n_threads) as pool:
-        jobs = list(pool.map(_prepare, paths))
-        _decode(jobs, n_threads)
-        return list(pool.map(_Job.pixels, jobs))
+    return _read_many(paths, _prepare)
 
 
 def imread(path):
@@ -282,6 +440,19 @@ def imread(path):
     job = _prepare(path)
     _decode([job], 1)
     return job.pixels()
+
+
+def read_exr_many(paths):
+    """Many OpenEXR files as float32 (H, W, 3|4) RGB(A) arrays (see the
+    module's docstring), read and decoded in parallel."""
+    return _read_many(paths, _prepare_exr)
+
+
+def read_exr(path):
+    """One OpenEXR file as a float32 (H, W, 3|4) RGB(A) array."""
+    job = _prepare_exr(path)
+    _decode([job], 1)
+    return job.out
 
 
 def read_png(path):

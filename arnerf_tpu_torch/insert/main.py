@@ -12,16 +12,23 @@ renders); --device cpu runs the plain versions in float32. Every render is
 `render_test` (non-fast) with T_threshold 1e-2 and 96 samples in rounds of
 32, as in the JAX package. Outputs go under ./insert/generate/<exp_name>/.
 
+HDR scenes (the JAX insertor's branches): --use_exposure builds the model
+with the tonemapper heads (renders tonemap at unit exposure); --use_EXR
+builds the raw-HDR model and renders radiance (`output_radiance`, ReLU)
+for the surface cache, the light probes and the dirty rect, so the
+object is relit from and composited into HDR radiance; the point cloud's
+colours are gamma-tonemapped, and a saved frame's EXR holds the HDR
+frame.
+
 A frame's stages run under `torch.profiler.record_function` spans:
 "probe" and "sg_fit" (action 1), "shade", "rect" and "shadow" (action 6);
 the renders inside them open the render layers' spans.
 
 Not ported, refused with an error: the baked-field programs
-(ARNERF_INSERT_BAKED=1; they need rendering_baked.py), --use_EXR and
---use_exposure (they need the HDR tonemapper heads), the EXR datasets,
-the amortised SG fitter (EnvTrainer, generate_envmaps,
-load_or_train_envmaps). The scene is any dataset the port loads:
-synthetic, nerf, nsvf, nerfpp or colmap with --root_dir.
+(ARNERF_INSERT_BAKED=1; they need the delta bake and the baked frame
+functions of rendering_baked), and the amortised SG fitter (EnvTrainer,
+generate_envmaps, load_or_train_envmaps). The scene is any dataset the
+port loads, with --root_dir.
 """
 
 import glob
@@ -48,7 +55,7 @@ from .sg_shadow import SGShadow
 from .sh_math import (get_cubemap_rays, get_sh_coeff, get_sphere_rays,
                       normalize, rotate_sh_by_recalc, sh2envmap, write2ply)
 from .shadow_fields import ComplexSF, soft_shadow_map, transform_sf_txt
-from .tonemapping import tonemapping_simple
+from .tonemapping import tonemapping_simple, tonemapping_simple_gamma
 
 SH_ORDER = 3           # SH9 (reference main.py:36)
 USE_STD_SF = True
@@ -60,13 +67,9 @@ def refuse_unported(hparams):
     """Raise for the options whose modules the port does not have yet."""
     if os.environ.get("ARNERF_INSERT_BAKED", "") == "1":
         raise NotImplementedError(
-            "ARNERF_INSERT_BAKED=1: the baked insert programs need "
-            "rendering_baked.py, which is not ported to arnerf_tpu_torch yet")
-    for flag in ("use_EXR", "use_exposure"):
-        if getattr(hparams, flag, False):
-            raise NotImplementedError(
-                f"--{flag}: HDR insertion needs the HDR tonemapper heads, "
-                f"which are not ported to arnerf_tpu_torch yet")
+            "ARNERF_INSERT_BAKED=1: the baked insert programs need the delta "
+            "bake and the baked frame functions of rendering_baked, which "
+            "are not ported to arnerf_tpu_torch yet")
 
 
 def _blur_hw1(img, k=9):
@@ -87,7 +90,7 @@ class NGPInsertor:
     there, so the parity tests pass both packages the same directions."""
 
     def __init__(self, hparams, generator=None):
-        from ..datasets import dataset_dict, unported_reason
+        from ..datasets import dataset_dict, loader_kwargs, unported_reason
         from ..device import resolve_device
         from ..models import grid_state_init, ngp_init
         from ..opt import model_config
@@ -121,8 +124,7 @@ class NGPInsertor:
         read_meta = not (self.has_sur or os.path.exists(
             os.path.join(self.gen_path, "mat_sh_000199.npz")))
         dataset = dataset_dict[hparams.dataset_name](
-            root_dir=hparams.root_dir, downsample=hparams.downsample,
-            read_meta=read_meta, device=dev)
+            **loader_kwargs(hparams, dev, read_meta=read_meta))
 
         l_resol = hparams.low_resolution
         self.K = np.array(dataset.K, np.float32)
@@ -191,6 +193,7 @@ class NGPInsertor:
             self.params, self.grid_state, rays_o, rays_d, self.cfg,
             exp_step_factor=exp_step_factor, T_threshold=1e-2,
             max_samples=96, samples_per_round=32,
+            output_radiance=kwargs.get("output_radiance", False),
             sh_bkg=kwargs.get("SH_bkg"), im_bkg=kwargs.get("IM_bkg"),
             blend_bkg=kwargs.get("blend_bkg", True),
             mesh_depth_map=kwargs.get("mesh_depth_map"))
@@ -198,6 +201,11 @@ class NGPInsertor:
         if kwargs.get("return_full_res", False):
             return out
         return out["rgb"], out["depth"]
+
+    @property
+    def radiance(self) -> bool:
+        """Renders of the scene's light give HDR radiance (--use_EXR)."""
+        return bool(self.hparams.use_EXR)
 
     def render_pose(self, pose, **kwargs):
         rays_o, rays_d = get_rays(self.directions.reshape(-1, 3),
@@ -209,8 +217,8 @@ class NGPInsertor:
     # -- offline prep ------------------------------------------------------
 
     def generate_surface(self, save=False):
-        """Per-pose surface cache: rgb, surface points and density-gradient
-        normals (reference main.py:151-193)."""
+        """Per-pose surface cache: rgb (radiance under --use_EXR), surface
+        points and density-gradient normals (reference main.py:151-193)."""
         save_path = os.path.join(self.gen_path, "surface.npy")
         if self.has_sur:
             info = np.load(save_path, allow_pickle=True).item()
@@ -222,7 +230,8 @@ class NGPInsertor:
         for pose in self.dataset.poses:
             rays_o, rays_d = get_rays(self.directions.reshape(-1, 3),
                                       self._t(pose))
-            rgb, depth = self.render(rays_o, rays_d)
+            rgb, depth = self.render(rays_o, rays_d,
+                                     output_radiance=self.radiance)
             surface_pts = rays_o + depth[:, None] * rays_d
             n = render_surface_normal(self.params, surface_pts, self.cfg)
             rgbs.append(_numpy(rgb).reshape(shape))
@@ -249,7 +258,10 @@ class NGPInsertor:
         pts = self.spts.reshape(-1, 3)
         idx = np.random.default_rng(0).permutation(pts.shape[0])
         idx = idx[:self.hparams.max_pc_pts_num]
-        write2ply(rgbs[idx], pts[idx], os.path.join(self.gen_path, "pc.ply"))
+        rgbs, pts = rgbs[idx], pts[idx]
+        if self.radiance:
+            rgbs = _numpy(tonemapping_simple_gamma(torch.as_tensor(rgbs)))
+        write2ply(rgbs, pts, os.path.join(self.gen_path, "pc.ply"))
         binfo = {
             "trans": np.asarray(getattr(self.dataset, "blender_trans",
                                         np.eye(4)), np.float32),
@@ -304,7 +316,8 @@ class NGPInsertor:
         ray_dirs = self.sh_ray_dirs.reshape(-1, 3)
         rays_o = self._t(pt)[None].expand(ray_dirs.shape)
         with record_function("probe"):
-            rgb, _ = self.render(rays_o, ray_dirs, SH_bkg=self.global_sh[0])
+            rgb, _ = self.render(rays_o, ray_dirs, SH_bkg=self.global_sh[0],
+                                 output_radiance=self.radiance)
         rgb = self._probe_rgb(rgb)
         self.cubemap_rgb = rgb
         if return_envmap:
@@ -328,7 +341,8 @@ class NGPInsertor:
         sphere directions a probe, drawn from the generator."""
         rays_o, ray_dirs = self._sphere_probe_rays(pts, ray_dirs)
         rgb, _ = self.render(rays_o.reshape(-1, 3), ray_dirs.reshape(-1, 3),
-                             SH_bkg=self.global_sh[0])
+                             SH_bkg=self.global_sh[0],
+                             output_radiance=self.radiance)
         rgb = self._probe_rgb(rgb).reshape(ray_dirs.shape)
         if return_raw_rgb:
             return rgb, ray_dirs
@@ -340,7 +354,8 @@ class NGPInsertor:
         main.py:382-407)."""
         rays_o, ray_dirs = self._sphere_probe_rays(pts, ray_dirs)
         res = self.render(rays_o.reshape(-1, 3), ray_dirs.reshape(-1, 3),
-                          blend_bkg=False, return_full_res=True)
+                          blend_bkg=False, return_full_res=True,
+                          output_radiance=self.radiance)
         rgb = res["rgb"].reshape(ray_dirs.shape)
         trans = 1.0 - res["opacity"].reshape(*ray_dirs.shape[:2], 1)
         return get_sh_coeff(ray_dirs, rgb), get_sh_coeff(ray_dirs, trans)
@@ -510,7 +525,8 @@ class NGPInsertor:
             rgb, depth_sur = self.render(
                 rays_o, rays_d,
                 IM_bkg=render_res[hs:hl, ws:wl].reshape(-1, 3),
-                mesh_depth_map=depth_t[hs:hl, ws:wl].reshape(-1))
+                mesh_depth_map=depth_t[hs:hl, ws:wl].reshape(-1),
+                output_radiance=self.radiance)
         if self.last_rgb is None:
             self.last_rgb = torch.zeros((self.H, self.W, 3),
                                         device=self.device)

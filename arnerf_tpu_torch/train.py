@@ -15,11 +15,17 @@ test line (training/lpips.py).
 Runs on the card by default, with the fused field-head kernel, bf16 field
 evaluation and stochastic corners (train.py:64-75); --device cpu runs the
 plain versions in float32 with exact corners. The datasets are synthetic,
-nerf, nsvf, nerfpp and colmap. Flags whose modules are not ported yet are
-refused: --optimize_ext, --use_exposure, --use_EXR, --num_gpus > 1,
---model_parallel > 1 and the EXR datasets (colmap_exr,
-colmap_real_exr, myblender, rtmv). Synthetic-NSVF runs end with the JAX
-CLI's no-mp4-backend message: the port writes no video.
+nerf, nsvf, nerfpp, colmap and the OpenEXR ones, colmap_exr,
+colmap_real_exr and myblender. The HDR flags are the JAX CLI's
+(train.py:54-83): --use_exposure trains the HDR-NeRF tonemapper heads on
+the exposures a dataset carries (colmap's HDR-NeRF layouts) with the
+unit-exposure anchor at the dataset's unit_exposure_rgb; --use_EXR trains
+raw HDR radiance (rgb_act None, leaky ReLU) on the EXR datasets, usually
+with --loss_func log; --optimize_ext refines every training pose. The
+test views are clipped to [0, 1] before PSNR. Refused: --num_gpus > 1,
+--model_parallel > 1 and rtmv (see datasets/__init__.py). Synthetic-NSVF
+runs end with the JAX CLI's no-mp4-backend message: the port writes no
+video.
 """
 
 import json
@@ -35,10 +41,6 @@ from .opt import get_opts, model_config
 
 def _refuse_unported(hparams):
     from .datasets import unported_reason
-    for flag in ("optimize_ext", "use_exposure", "use_EXR"):
-        if getattr(hparams, flag):
-            raise SystemExit(f"--{flag} is not ported to arnerf_tpu_torch "
-                             f"yet; use the JAX train.py")
     if hparams.num_gpus > 1 or hparams.model_parallel > 1:
         raise SystemExit("--num_gpus > 1 and --model_parallel > 1 (DDP, "
                          "sharded tables) are not ported to arnerf_tpu_torch "
@@ -64,7 +66,7 @@ def main(argv=None, callback=None) -> dict:
         raise ValueError("You need to provide a @ckpt_path for validation!")
     _refuse_unported(hparams)
 
-    from .datasets import dataset_dict
+    from .datasets import dataset_dict, loader_kwargs
     from .device import resolve_device
     from .training.ckpt import slim_ckpt
     from .training.losses import NeRFLossConfig
@@ -74,8 +76,7 @@ def main(argv=None, callback=None) -> dict:
 
     device = resolve_device(hparams.device)
     dataset_cls = dataset_dict[hparams.dataset_name]
-    kwargs = {"root_dir": hparams.root_dir, "downsample": hparams.downsample,
-              "device": device}
+    kwargs = loader_kwargs(hparams, device)
     train_ds = dataset_cls(split=hparams.split, **kwargs)
     test_ds = dataset_cls(split="test", **kwargs)
 
@@ -86,9 +87,11 @@ def main(argv=None, callback=None) -> dict:
         batch_size=hparams.batch_size, lr=hparams.lr,
         num_epochs=hparams.num_epochs,
         steps_per_epoch=hparams.steps_per_epoch,
-        random_bg=hparams.random_bg,
+        random_bg=hparams.random_bg, optimize_ext=hparams.optimize_ext,
         ray_sampling_strategy=hparams.ray_sampling_strategy,
+        use_exposure=hparams.use_exposure,
         val_batch_size=hparams.val_batch_size,
+        unit_exposure_rgb=float(getattr(train_ds, "unit_exposure_rgb", 0.5)),
         erode=hparams.dataset_name == "colmap",
         seg_pool=hparams.seg_pool == "on",
         loss=NeRFLossConfig(

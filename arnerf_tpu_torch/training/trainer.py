@@ -18,6 +18,12 @@ hoisted block march (`march_hoist`) and the marchers' "search" selection
 (`march_selection`; the port marches with the sort selection the JAX
 trainer runs by default).
 
+The HDR options are the JAX trainer's: `use_exposure` feeds each ray's
+exposure (the images' 4th column) to the tonemapper heads and anchors them
+at unit exposure; `optimize_ext` adds per-image pose deltas (`dR` axis-angle,
+`dT` translation) to the parameters, with their own Adam at lr 1e-6, and
+builds the rays from the refined poses inside the autograd graph.
+
 Random draws come from torch generators (a device generator for ray
 indices and noise, a CPU generator for the stochastic-corner seeds), so a
 run does not repeat the JAX trainer's draws; the parity tests feed both
@@ -31,9 +37,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..datasets.ray_utils import get_rays
+from ..datasets.ray_utils import axisangle_to_R, get_rays
 from ..models.ngp import (NGPConfig, grid_state_init, mark_invisible_cells,
-                          ngp_init, update_density_grid)
+                          ngp_init, ngp_log_radiance_to_rgb,
+                          update_density_grid)
 from ..rendering import (MAX_SAMPLES, draw_train_inputs, render_test,
                          render_train)
 from . import ckpt as ckpt_lib
@@ -111,11 +118,14 @@ class Adam:
     update mu_hat / (sqrt(nu_hat) + eps) scaled by -schedule(count).
 
     The state is kept as optax keeps it (see training/ckpt.py): the step
-    count, mu and nu in tree_leaves order, and the schedule's count, so a
+    count, mu and nu in tree_leaves order, and the schedule's count (none
+    for a constant rate: `scheduled=False`, optax.adam with a float), so a
     checkpoint carries it to and from the JAX package."""
 
-    def __init__(self, params, schedule, b1=0.9, b2=0.999, eps=1e-15):
+    def __init__(self, params, schedule, b1=0.9, b2=0.999, eps=1e-15,
+                 scheduled=True):
         self.schedule, self.b1, self.b2, self.eps = schedule, b1, b2, eps
+        self.scheduled = scheduled
         leaves = ckpt_lib.tree_leaves(params)
         self.mu = [torch.zeros_like(p, requires_grad=False) for p in leaves]
         self.nu = [torch.zeros_like(p, requires_grad=False) for p in leaves]
@@ -147,40 +157,114 @@ class Adam:
         self.count = count
         self.sched_count += 1
 
+    @property
+    def n_state_leaves(self) -> int:
+        return 2 * len(self.mu) + 1 + int(self.scheduled)
+
     def state_leaves(self) -> list:
         return ([np.asarray(self.count, np.int32)] + self.mu + self.nu
-                + [np.asarray(self.sched_count, np.int32)])
+                + ([np.asarray(self.sched_count, np.int32)]
+                   if self.scheduled else []))
 
     def load_state_leaves(self, leaves):
         n = len(self.mu)
-        if len(leaves) != 2 * n + 2:
+        if len(leaves) != self.n_state_leaves:
             raise ValueError(f"optimizer state has {len(leaves)} leaves, "
-                             f"expected {2 * n + 2}")
+                             f"expected {self.n_state_leaves}")
         self.count = int(leaves[0])
         for dst, src in zip(self.mu + self.nu, leaves[1:2 * n + 1]):
             dst.copy_(src)
-        self.sched_count = int(leaves[-1])
+        if self.scheduled:
+            self.sched_count = int(leaves[-1])
+
+
+def model_params(params) -> dict:
+    """The network's parameters: `params` without the pose deltas."""
+    return {k: v for k, v in params.items() if k != "pose_deltas"}
+
+
+class PoseAdam:
+    """The JAX make_optimizer under --optimize_ext:
+    optax.multi_transform({"net": adam(schedule, eps=1e-15), "pose":
+    adam(1e-6)}), the pose deltas labelled "pose" (reference
+    train.py:148-149). Its state leaves are optax's: the network's Adam
+    (count, mu, nu, schedule count), then the deltas' (count, mu, nu)."""
+
+    def __init__(self, params, schedule):
+        self.net = Adam(model_params(params), schedule, eps=1e-15)
+        self.pose = Adam(self._pose_tree(params), lambda _: 1e-6, eps=1e-8,
+                         scheduled=False)
+
+    @staticmethod
+    def _pose_tree(params):
+        return {"pose_deltas": params["pose_deltas"]}
+
+    @property
+    def lr(self) -> float:
+        return self.net.lr
+
+    @property
+    def count(self) -> int:
+        return self.net.count
+
+    @property
+    def n_state_leaves(self) -> int:
+        return self.net.n_state_leaves + self.pose.n_state_leaves
+
+    def step(self, params, grads):
+        by_leaf = {id(p): g for p, g in zip(ckpt_lib.tree_leaves(params),
+                                            grads)}
+        for opt, tree in ((self.net, model_params(params)),
+                          (self.pose, self._pose_tree(params))):
+            opt.step(tree, [by_leaf[id(p)]
+                            for p in ckpt_lib.tree_leaves(tree)])
+
+    def state_leaves(self) -> list:
+        return self.net.state_leaves() + self.pose.state_leaves()
+
+    def load_state_leaves(self, leaves):
+        n = self.net.n_state_leaves
+        self.net.load_state_leaves(leaves[:n])
+        self.pose.load_state_leaves(leaves[n:])
 
 
 def make_optimizer(tc: TrainConfig, params):
     """Adam(lr schedule, eps=1e-15), the reference's FusedAdam
-    (train.py:146). Returns (optimizer, schedule)."""
-    if tc.optimize_ext:
-        raise NotImplementedError("--optimize_ext (pose refinement) is not "
-                                  "ported to arnerf_tpu_torch yet")
+    (train.py:146); with tc.optimize_ext the pose deltas get their own
+    (PoseAdam). Returns (optimizer, schedule)."""
     sched = cosine_epoch_schedule(tc.lr, tc.num_epochs, tc.steps_per_epoch,
                                   warmup_steps=tc.warmup_steps)
+    if tc.optimize_ext:
+        return PoseAdam(params, sched), sched
     return Adam(params, sched, eps=1e-15), sched
 
 
+def rays_at(images, poses, directions, img_idxs, pix_idxs, tc: TrainConfig,
+            pose_deltas=None):
+    """The rays, colours and exposures of the given pixels (reference
+    train.py:84-97). images: (N_img, HW, 3|4). pose_deltas ({dR, dT},
+    (N_img, 3) each; --optimize_ext) refine the poses as
+    [axisangle_to_R(dR) @ R | t + dT]; built here, inside the autograd
+    graph, their gradient arrives through the rays."""
+    rays = images[img_idxs, pix_idxs]                  # (B, 3|4)
+    exposure = rays[:, 3:4] if (tc.use_exposure and images.shape[-1] == 4) \
+        else None
+    pose = poses[img_idxs]                             # (B, 3, 4)
+    if pose_deltas is not None:
+        dR = axisangle_to_R(pose_deltas["dR"][img_idxs])
+        t = pose[..., 3] + pose_deltas["dT"][img_idxs]
+        pose = torch.cat([dR @ pose[..., :3], t[..., None]], dim=-1)
+    rays_o, rays_d = get_rays(directions[pix_idxs], pose)
+    return rays_o, rays_d, rays[:, :3], exposure
+
+
 def sample_rays(images, poses, directions, tc: TrainConfig,
-                generator: torch.Generator):
-    """On-device ray-batch sampling (reference base.py:22-35 +
-    train.py:84-97). images: (N_img, HW, 3|4) on the device; indices come
-    from `generator` (a generator of the images' device)."""
+                generator: torch.Generator, pose_deltas=None):
+    """On-device ray-batch sampling (reference base.py:22-35): image and
+    pixel indices from `generator` (a generator of the images' device),
+    then rays_at."""
     n_img, hw = images.shape[0], images.shape[1]
-    dev = images.device
-    B = tc.batch_size
+    dev, B = images.device, tc.batch_size
     if tc.ray_sampling_strategy == "same_image":
         img_idxs = torch.randint(0, n_img, (1,), generator=generator,
                                  device=dev).expand(B)
@@ -188,27 +272,36 @@ def sample_rays(images, poses, directions, tc: TrainConfig,
         img_idxs = torch.randint(0, n_img, (B,), generator=generator,
                                  device=dev)
     pix_idxs = torch.randint(0, hw, (B,), generator=generator, device=dev)
-    rays = images[img_idxs, pix_idxs]                  # (B, 3|4)
-    exposure = rays[:, 3:4] if (tc.use_exposure and images.shape[-1] == 4) \
-        else None
-    rays_o, rays_d = get_rays(directions[pix_idxs], poses[img_idxs])
-    return rays_o, rays_d, rays[:, :3], exposure
+    return rays_at(images, poses, directions, img_idxs, pix_idxs, tc,
+                   pose_deltas)
 
 
 def step_loss(params, grid_state, rays_o, rays_d, rgb_gt, *, noise, seed,
               rgb_bg, cfg: NGPConfig, tc: TrainConfig,
-              exp_step_factor: float, seg_cap: int):
+              exp_step_factor: float, seg_cap: int, exposure=None):
     """The loss of one step on given rays and draws, and the render's
-    results: the deterministic core of a training step."""
+    results: the deterministic core of a training step. `exposure` (B, 1)
+    goes to the tonemapper heads; with tc.use_exposure the loss adds the
+    unit-exposure anchor 0.5 * (tonemap(0, exposure 1) - unit_rgb)^2
+    (reference train.py:182-187)."""
+    net = model_params(params)
     results = render_train(
-        params, grid_state, rays_o, rays_d, cfg, noise=noise, seed=seed,
+        net, grid_state, rays_o, rays_d, cfg, noise=noise, seed=seed,
         rgb_bg=rgb_bg, exp_step_factor=exp_step_factor,
         m_cap=tc.batch_size * tc.samples_per_ray_budget, s_cap=tc.s_cap,
-        max_samples=tc.max_samples, seg_cap=seg_cap,
+        max_samples=tc.max_samples, seg_cap=seg_cap, exposure=exposure,
         seg_pool=tc.batch_size * seg_cap if tc.seg_pool and seg_cap > 0
         else 0)
     with record_function("loss"):
-        loss = total_loss(nerf_loss(results, rgb_gt, tc.loss))
+        ld = nerf_loss(results, rgb_gt, tc.loss)
+        if tc.use_exposure:
+            dev = rays_o.device
+            unit_rgb = ngp_log_radiance_to_rgb(
+                net, torch.zeros((1, 3), device=dev),
+                exposure=torch.ones((1, 1), device=dev))
+            ld["unit_exposure"] = 0.5 * (unit_rgb
+                                         - tc.unit_exposure_rgb) ** 2
+        loss = total_loss(ld)
     return loss, results
 
 
@@ -216,18 +309,22 @@ def train_step(params, opt: Adam, grid_state, images, poses, directions, *,
                cfg: NGPConfig, tc: TrainConfig, exp_step_factor: float,
                seg_cap: int, generator: torch.Generator,
                host_generator: torch.Generator) -> dict:
-    """One training step; returns its metrics as device tensors (no sync)."""
+    """One training step; returns its metrics as device tensors (no sync).
+    Under tc.optimize_ext the corners are exact: stochastic corners zero
+    the position gradient the pose deltas need (trainer.py:285)."""
     with record_function("sample"):
-        rays_o, rays_d, rgb_gt, _ = sample_rays(images, poses, directions,
-                                                tc, generator)
+        rays_o, rays_d, rgb_gt, exposure = sample_rays(
+            images, poses, directions, tc, generator,
+            params["pose_deltas"] if tc.optimize_ext else None)
         noise, seed, rgb_bg = draw_train_inputs(
             rays_o.shape[0], rays_o.device, generator=generator,
-            host_generator=host_generator, stoch=cfg.stoch_corners,
+            host_generator=host_generator,
+            stoch=cfg.stoch_corners and not tc.optimize_ext,
             random_bg=tc.random_bg)
     loss, results = step_loss(params, grid_state, rays_o, rays_d, rgb_gt,
                               noise=noise, seed=seed, rgb_bg=rgb_bg, cfg=cfg,
                               tc=tc, exp_step_factor=exp_step_factor,
-                              seg_cap=seg_cap)
+                              seg_cap=seg_cap, exposure=exposure)
     with record_function("backward"):
         grads = torch.autograd.grad(loss, ckpt_lib.tree_leaves(params),
                                     allow_unused=True)
@@ -249,10 +346,6 @@ class NeRFTrainer:
 
     def __init__(self, cfg: NGPConfig, tc: TrainConfig, dataset,
                  test_dataset=None, seed: int = 0, device="cpu"):
-        if tc.optimize_ext or tc.use_exposure:
-            raise NotImplementedError(
-                "--optimize_ext and --use_exposure are not ported to "
-                "arnerf_tpu_torch yet")
         self.cfg, self.tc = cfg, tc
         self.device = torch.device(device)
         self.dataset, self.test_dataset = dataset, test_dataset
@@ -260,6 +353,11 @@ class NeRFTrainer:
         self.exp_step_factor = 1 / 256 if cfg.scale > 0.5 else 0.0
         self.params = ngp_init(cfg, torch.Generator().manual_seed(seed),
                                self.device)
+        if tc.optimize_ext:
+            n = len(dataset.poses)
+            self.params["pose_deltas"] = {
+                "dR": torch.zeros((n, 3), device=self.device),
+                "dT": torch.zeros((n, 3), device=self.device)}
         for leaf in ckpt_lib.tree_leaves(self.params):
             leaf.requires_grad_(True)
         self.opt, self.lr_sched = make_optimizer(tc, self.params)
@@ -290,7 +388,8 @@ class NeRFTrainer:
     def update_grid(self, warmup: bool):
         with record_function("grid_update"):
             self.grid_state = update_density_grid(
-                self.params, self.grid_state, self.cfg, DENSITY_THRESHOLD,
+                self.model_params, self.grid_state, self.cfg,
+                DENSITY_THRESHOLD,
                 warmup=warmup, generator=self.generator,
                 decay=self.tc.density_decay, erode=self.tc.erode)
 
@@ -463,9 +562,13 @@ class NeRFTrainer:
         rays_o, rays_d = get_rays(dirs, torch.as_tensor(pose,
                                                         device=self.device))
         kwargs.setdefault("chunk", self.val_chunk)
-        return render_test(self.params, self.grid_state, rays_o, rays_d,
-                           self.cfg, exp_step_factor=self.exp_step_factor,
-                           **kwargs)
+        return render_test(self.model_params, self.grid_state, rays_o,
+                           rays_d, self.cfg,
+                           exp_step_factor=self.exp_step_factor, **kwargs)
+
+    @property
+    def model_params(self) -> dict:
+        return model_params(self.params)
 
     def validate(self, max_images=None, compute_ssim=True, stride=1,
                  **render_kwargs):
@@ -520,7 +623,7 @@ class NeRFTrainer:
             path, params_template=self.params,
             grid_template=self.grid_state, device=self.device)
         self._set_params(params)
-        leaves = ckpt_lib.load_opt_state(path, 2 * len(self.opt.mu) + 2,
+        leaves = ckpt_lib.load_opt_state(path, self.opt.n_state_leaves,
                                          self.device)
         if leaves is not None:
             self.opt.load_state_leaves(leaves)

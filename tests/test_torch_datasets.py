@@ -331,7 +331,8 @@ def test_read_image_matches_jax(tmp_path, monkeypatch, blend_a):
         np.testing.assert_allclose(
             t_color.read_images(paths, wh, blend_a), want,
             atol=TOL * float(np.abs(want).max()), rtol=0)
-    with pytest.raises(NotImplementedError, match="OpenEXR"):
+    # exr_file=True takes the OpenEXR reader, which names what it found
+    with pytest.raises(ValueError, match="not an OpenEXR file"):
         t_color.read_image(paths[0], (32, 24), exr_file=True)
 
 
@@ -419,8 +420,8 @@ def test_pfm_roundtrip_matches_jax(tmp_path):
 
 
 def test_registry_and_unported_datasets():
-    for name in ("synthetic", "nerf", "nsvf", "colmap", "nerfpp"):
+    for name in ("synthetic", "nerf", "nsvf", "colmap", "nerfpp",
+                 "colmap_exr", "colmap_real_exr", "myblender"):
         assert t_datasets.unported_reason(name) is None
-    for name in ("colmap_exr", "colmap_real_exr", "myblender", "rtmv"):
-        reason = t_datasets.unported_reason(name)
-        assert "OpenEXR" in reason and "ROADMAP queue 1" in reason
+    reason = t_datasets.unported_reason("rtmv")
+    assert "OpenEXR" in reason and "ROADMAP section 3" in reason

@@ -254,9 +254,6 @@ def test_insert_entry_point_refusals(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="rendering_baked"):
         t_main.main(SMALL_FLAGS + ["--device", "cpu"])
     monkeypatch.delenv("ARNERF_INSERT_BAKED")
-    for flag in ("--use_EXR", "--use_exposure"):
-        with pytest.raises(NotImplementedError, match="tonemapper heads"):
-            t_main.main(SMALL_FLAGS + ["--device", "cpu", flag])
     with pytest.raises(NotImplementedError, match="not ported.*OpenEXR"):
         t_main.main(["--dataset_name", "rtmv", "--device", "cpu"])
 
@@ -311,9 +308,9 @@ def test_decoders_read_the_viewer_bytes_as_the_jax_server():
 
 
 def test_png_and_exr_files_read_back(tmp_path):
-    """image_io's PNG (8-bit RGB) and OpenEXR (uncompressed FLOAT RGB)
-    writers, read back by the JAX package's native decoder (libpng and
-    OpenEXR's RGBA interface, which reads half floats: 1e-3 relative)."""
+    """image_io's PNG (8-bit RGB) and OpenEXR (HALF RGB, ZIP) writers,
+    read back by the JAX package's native decoder (libpng and OpenEXR's
+    RGBA interface: the HALF values, 1e-3 relative)."""
     from arnerf_tpu.native import load_images_batch
     from arnerf_tpu_torch.image_io import write_exr, write_png
     rng = np.random.default_rng(2)

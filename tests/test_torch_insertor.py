@@ -383,9 +383,6 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="rendering_baked"):
         t_main.NGPInsertor(make_hparams("x"))
     monkeypatch.delenv("ARNERF_INSERT_BAKED")
-    for flag in ("use_EXR", "use_exposure"):
-        with pytest.raises(NotImplementedError, match="tonemapper"):
-            t_main.NGPInsertor(make_hparams("x", **{flag: True}))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             t_main.NGPInsertor(make_hparams("x", device="cuda"))

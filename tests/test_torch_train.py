@@ -206,14 +206,20 @@ def test_trainer_fit_and_checkpoint_roundtrip_with_jax(tmp_path):
 
 
 def test_trainer_refuses_unported_options():
-    with pytest.raises(NotImplementedError):
-        t_trainer.make_optimizer(t_trainer.TrainConfig(optimize_ext=True),
-                                 {})
+    """The options this test saw refused are ported now, and the trainer
+    refuses none (their parity is tests/test_torch_hdr_train.py's):
+    --optimize_ext gives the pose deltas their own optimizer, and
+    --use_exposure builds the tonemapper heads."""
+    opt, _ = t_trainer.make_optimizer(
+        t_trainer.TrainConfig(optimize_ext=True),
+        {"hash_table": torch.zeros(4, 2),
+         "pose_deltas": {"dR": torch.zeros(3, 3), "dT": torch.zeros(3, 3)}})
+    assert isinstance(opt, t_trainer.PoseAdam) and opt.n_state_leaves == 9
     ds = SyntheticDataset(split="train", read_meta=False,
                           config=SyntheticConfig(img_wh=(8, 8)))
-    with pytest.raises(NotImplementedError, match="use_exposure"):
-        t_trainer.NeRFTrainer(NGPConfig(**SMALL),
-                              t_trainer.TrainConfig(use_exposure=True), ds)
+    tr = t_trainer.NeRFTrainer(NGPConfig(rgb_act="None", **SMALL),
+                               t_trainer.TrainConfig(use_exposure=True), ds)
+    assert "tonemappers" in tr.params
 
 
 def _run(args, cwd, timeout=600):
@@ -266,12 +272,12 @@ def test_train_entry_point_needs_the_card_or_device_cpu(tmp_path):
     assert "--device cpu" in proc.stderr
 
 
-@pytest.mark.parametrize("flag", [["--optimize_ext"], ["--use_exposure"],
-                                  ["--use_EXR"], ["--num_gpus", "2"],
+@pytest.mark.parametrize("flag", [["--num_gpus", "2"],
                                   ["--model_parallel", "2"],
-                                  ["--dataset_name", "colmap_exr"],
                                   ["--dataset_name", "rtmv"]])
 def test_train_entry_point_refuses_unported_flags(flag):
+    """What train still refuses; the HDR flags and the EXR datasets run
+    (tests/test_torch_hdr_train.py)."""
     from arnerf_tpu_torch import train as t_train
     argv = ["--device", "cpu", "--dataset_name", "synthetic", *flag]
     with pytest.raises(SystemExit, match="not ported"):

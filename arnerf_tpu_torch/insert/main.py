@@ -67,9 +67,9 @@ def refuse_unported(hparams):
     """Raise for the options whose modules the port does not have yet."""
     if os.environ.get("ARNERF_INSERT_BAKED", "") == "1":
         raise NotImplementedError(
-            "ARNERF_INSERT_BAKED=1: the baked insert programs need the delta "
-            "bake and the baked frame functions of rendering_baked, which "
-            "are not ported to arnerf_tpu_torch yet")
+            "ARNERF_INSERT_BAKED=1: the fused baked insert programs "
+            "(the baked scene, probe, rect and frame renders of the JAX "
+            "insert/main.py) are not ported to arnerf_tpu_torch yet")
 
 
 def _blur_hw1(img, k=9):

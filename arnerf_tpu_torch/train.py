@@ -60,7 +60,8 @@ def depth2img(depth):
 
 def main(argv=None, callback=None) -> dict:
     """Train, save, validate. Returns the trainer and the test metrics.
-    callback(step, metrics), if given, runs after every training block."""
+    callback(step, metrics, trainer), if given, runs after every training
+    block."""
     hparams = get_opts(argv)
     if hparams.val_only and not hparams.ckpt_path:
         raise ValueError("You need to provide a @ckpt_path for validation!")
@@ -112,7 +113,7 @@ def main(argv=None, callback=None) -> dict:
         with open(os.path.join(log_dir, "metrics.jsonl"), "a") as log:
             def log_cb(step, m):
                 if callback is not None:
-                    callback(step, m)
+                    callback(step, m, trainer)
                 if step % 100 < tc.update_interval:
                     log.write(json.dumps(
                         {"step": int(step),

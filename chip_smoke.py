@@ -28,7 +28,9 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  renders the checkpoint at 800x800 (f32, as eval runs by
                  default). The segment-sum kernel
                  must run in both modes and the fused head must run; train
-                 PSNR must pass 19 dB and validation PSNR 17 dB.
+                 PSNR must pass 19 dB and validation PSNR 17 dB. The
+                 training callback also saves a checkpoint at step 512
+                 for the viewer's live preview.
   insert   - the AR insertion server's path at 800x800 from the train
                  phase's checkpoint: NGPInsertor, the surface cache and
                  point cloud over the 24 training poses, plane RANSAC, the
@@ -80,10 +82,11 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  with the mip-NeRF 360 outdoor flags (--scale 16: 6
                  cascades, exp stepping; batch 4096, lr 2e-2), then eval (a
                  finite loss at every block, validation > 17 dB) and the
-                 baked eval (the multi-cascade bake and renderer, > 17 dB,
-                 fused-head launches in the bake). Both kernels must run
-                 on both training paths. One f32 training step of the
-                 trained scale-16 model must agree card vs CPU to 1e-5.
+                 baked eval (the multi-cascade bake and renderer, > 17
+                 dB, fused-head launches in the bake), both at 620x412.
+                 Both kernels must run on both training paths. One f32
+                 training step of the trained scale-16 model must agree
+                 card vs CPU to 1e-5.
   hdr      - the HDR path. Every OpenEXR fixture of tests/data/exr/
                  through the port's reader: the supported ones (NONE,
                  RLE, ZIPS, ZIP; HALF and FLOAT; RGB and RGBA; an offset
@@ -105,11 +108,29 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  EXR, read back, must be finite and pass 1). Each training
                  must lower its loss; both kernels must run in training
                  and the fused head in the insertion.
+  viewer   - `python -m arnerf_tpu_torch.show_gui` headless (no DISPLAY) on
+                 the train phase's checkpoint at 800x800, as a subprocess,
+                 on the network frame and with ARNERF_GUI_BAKED=1 (256^3
+                 bake, display frames): each exits 0 and prints its FPS
+                 line, the baked one its bake line. The live preview: a
+                 baked NGPGUI on the train phase's step-512 checkpoint,
+                 the final checkpoint copied over it, refresh_bake once
+                 (a delta within its budget, frac < 1) and frames again.
+                 Card against CPU: a 64x64 network frame (1e-3, equal
+                 samples), the live bake's display frame at 64x64 from one
+                 key (at most RENDER_FLIP_PIXELS pixels more than one level
+                 apart, rounds equal), and an exact-corner delta bake at
+                 64^3 from the step-512 to the final checkpoint (stats and
+                 snapshots equal, rows to 1e-4 of their largest entry;
+                 DELTA_CHECK_K deltas on the card reach a fresh full bake to
+                 1e-4). One frame of each HDR checkpoint, finite in [0, 1].
+                 The fused head must launch on the network frames, the
+                 bakes and the delta.
 Then torch.profiler passes over one bf16 view, one baked view, one
 post-warmup training block and one AR frame print where their time goes;
 the baked view's pass bakes with exact corners and prints that bake's
-seconds and its PSNR on the 4 views (measurements only; they fail
-nothing).
+seconds and its PSNR on the 4 views; then one network and one baked viewer
+frame (measurements only; they fail nothing).
 Prints the card's name and power limit, then one JSON line of per-kernel
 numbers, then the result line {"ok": true, "device": {...}}.
 """
@@ -148,6 +169,9 @@ BLENDER_VIEWS = (100, 8)        # train, test: the reference's Blender split
 BLENDER_WH = 800                # the Blender scenes' size (datasets/nerf.py)
 COLMAP_VIEWS = 64               # every 8th is a test view
 COLMAP_WH = (1240, 824)         # about mip-NeRF 360 at --downsample 0.25
+# the colmap eval entry point's repeats (network and baked) of the test
+# views its training validated at full size run at 620x412
+COLMAP_EVAL_ARGV = ["--downsample", "0.5"]
 BAKE_DIRS = 32                  # bake_ngp's quadrature directions
 BAKE_CHECK_RES = 64             # card-vs-CPU bake (B^3 voxels)
 RENDER_FLIP_PIXELS = 4          # of a 64x64 view (baked_card_vs_cpu)
@@ -167,6 +191,10 @@ HDR_ARGV = {
     "pose": ["--dataset_name", "myblender", "--use_EXR", "--optimize_ext",
              "--num_epochs", "1", "--steps_per_epoch", "320",
              "--batch_size", "8192"]}
+VIEWER_DIR = SMOKE_DIR / "viewer"
+GUI_ARGV = ["--dataset_name", "synthetic", "--downsample", "6.25"]  # 800^2
+MID_STEP = 512                  # the train phase's mid-run checkpoint
+DELTA_CHECK_K = 4               # refresh_k of the card-vs-CPU delta check
 CAPTURE_ARGV = {
     # benchmarking/benchmark_synthetic_nerf.sh passes --eval_lpips
     "nerf": ["--dataset_name", "nerf", "--num_epochs", "1",
@@ -509,11 +537,12 @@ def run_slice(ckpt, dtype_name):
     return launches
 
 
-def train_entry(argv, work, label):
+def train_entry(argv, work, label, save_at=None):
     """The train entry point with `argv` in `work`, every launch counter
     set to 0 just before: returns its result, the counters at its last
     training block, each block's metrics and the launches of its test-split
-    validation."""
+    validation. save_at: a step after which the callback also saves a
+    checkpoint (`mid_ckpt`), as a training run watched by the viewer does."""
     import numpy as np
     import torch
     from arnerf_tpu_torch import train as port_train
@@ -522,9 +551,14 @@ def train_entry(argv, work, label):
     work.mkdir(parents=True, exist_ok=True)
     counts, blocks = {}, []
 
-    def on_block(step, metrics):    # the counters as training leaves them
+    mid_ckpt = work / "mid" / f"step={save_at}.npz"
+
+    def on_block(step, metrics, trainer):   # the counters as training
         counts.update(step=step, head=fh.launches, **seg.launches)
         blocks.append({k: float(v) for k, v in metrics.items()})
+        if step == save_at:
+            mid_ckpt.parent.mkdir(parents=True, exist_ok=True)
+            trainer.save(mid_ckpt)
 
     cwd = os.getcwd()
     os.chdir(work)
@@ -539,6 +573,8 @@ def train_entry(argv, work, label):
         # test-split validation renders after it
         res["val_launches"] = fh.launches - counts["head"]
         res["ckpt"] = str(work / res["ckpt_dir"] / "epoch=0.npz")
+        if save_at is not None:
+            res["mid_ckpt"] = str(mid_ckpt)
     finally:
         os.chdir(cwd)
     trainer = res["trainer"]
@@ -609,11 +645,13 @@ def run_train(state):
     """The train entry point for one 1,000-step epoch at full width, then
     the eval entry point on its checkpoint at 800x800."""
     import numpy as np
-    res = train_entry(TRAIN_ARGV, SMOKE_DIR / "train", "train")
+    res = train_entry(TRAIN_ARGV, SMOKE_DIR / "train", "train",
+                      save_at=MID_STEP)
     counts, last = res["counts"], res["blocks"][-1]
     state["train_launches"] = {k: counts[k] for k in ("head", "pack", "exact")}
     state["train_val_launches"] = res["val_launches"]
     state["train_ckpt"] = res["ckpt"]
+    state["train_mid_ckpt"] = res["mid_ckpt"]
     state["trainer"] = res["trainer"]
     val = eval_entry(["--dataset_name", "synthetic", "--downsample", "6.25",
                       "--ckpt_path", res["ckpt"]], "train")
@@ -1746,7 +1784,8 @@ def captures_phase(state, dev):
         extra = ["--grid_vis", str(work / "grid.png"), "--cam_vis",
                  str(work / "cams.png"), "--mesh", str(work / "mesh.obj")] \
             if name == "nerf" else []
-        val = eval_entry(argv + ["--ckpt_path", res["ckpt"], *extra],
+        eval_argv = argv + (COLMAP_EVAL_ARGV if name == "colmap" else [])
+        val = eval_entry(eval_argv + ["--ckpt_path", res["ckpt"], *extra],
                          f"captures[{name}]")
         state[("capture_eval", name)] = val["launches"]
         steps = counts["step"]
@@ -1772,7 +1811,7 @@ def captures_phase(state, dev):
             except AssertionError as e:
                 failures.append(str(e))
         else:
-            vb = eval_entry(argv + ["--ckpt_path", res["ckpt"]],
+            vb = eval_entry(eval_argv + ["--ckpt_path", res["ckpt"]],
                             "captures[colmap] baked", baked=True)
             state[("capture_baked", name)] = vb["launches"]
             more.update(baked_psnr=float(np.mean(vb["psnr"])),
@@ -1941,11 +1980,13 @@ def hdr_phase(state, dev):
     summary["card_vs_cpu_loss_rel"] = capture_card_vs_cpu(
         trainer, dev, "hdr", sample_tol=0, grad_tol=1e-4)
     exr_ckpt = res["ckpt"]
+    state["hdr_ckpts"] = {"exr": exr_ckpt}
     del res, trainer
 
     root, _ = captures.write_hdr_nerf_capture(str(HDR_DIR), wh=(200, 200),
                                               focal=175.0, device=dev)
     res = train("exposure", root)
+    state["hdr_ckpts"]["exposure"] = res["ckpt"]
     tr = res["trainer"]
     with torch.no_grad():
         unit = ngp_log_radiance_to_rgb(
@@ -1968,6 +2009,7 @@ def hdr_phase(state, dev):
     captures.write_myblender_capture(str(myb), n_views=32, wh=(400, 300),
                                      focal=350.0, device=dev)
     res = train("pose", myb)
+    state["hdr_ckpts"]["pose"] = res["ckpt"]
     deltas = res["trainer"].params["pose_deltas"]
     moved = {k: float(v.detach().abs().max()) for k, v in deltas.items()}
     summary["pose"]["moved"] = moved
@@ -2013,6 +2055,296 @@ def hdr_phase(state, dev):
     print(f"hdr summary: {summary}", flush=True)
     if failures:
         raise AssertionError("; ".join(failures))
+
+def gui_entry(ckpt, baked):
+    """`python -m arnerf_tpu_torch.show_gui` headless (no DISPLAY) on
+    `ckpt` at 800x800, network or ARNERF_GUI_BAKED=1, as a subprocess:
+    its exit code, FPS line, bake line and fused-head launches."""
+    env = {k: v for k, v in os.environ.items() if k != "DISPLAY"}
+    env["ARNERF_GUI_BAKED"] = "1" if baked else "0"
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "arnerf_tpu_torch.show_gui", *GUI_ARGV,
+         "--ckpt_path", ckpt], cwd=VIEWER_DIR, env=env, capture_output=True,
+        text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    label = "baked" if baked else "network"
+    for line in proc.stdout.splitlines():
+        print(f"  show_gui[{label}]: {line}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"show_gui[{label}] exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    fps = re.search(r"headless orbit: ([\d.]+) FPS at (\d+)x(\d+), "
+                    r"([\d.]+) samples/ray", proc.stdout)
+    launches = re.search(r"fused-head launches: (\d+) in (\d+) frames, "
+                         r"(\d+) before them", proc.stdout)
+    bake = re.search(r"baked field in ([\d.]+)s", proc.stdout)
+    if fps is None or launches is None or (baked and bake is None):
+        raise AssertionError(f"show_gui[{label}]: missing output lines")
+    frames = int(launches.group(2))
+    return {"fps": float(fps.group(1)),
+            "wh": (int(fps.group(2)), int(fps.group(3))),
+            "samples_per_ray": float(fps.group(4)),
+            "frame_launches": int(launches.group(1)), "frames": frames,
+            "frame_launches_per_frame": int(launches.group(1)) / frames,
+            "launches_before_frames": int(launches.group(3)),
+            "bake_s": float(bake.group(1)) if bake else None,
+            "process_s": seconds}
+
+
+def _gui(ckpt, dev, width=None, extra=(), baked=False):
+    """An NGPGUI on `ckpt` on `dev` with GUI_ARGV's synthetic view, or that
+    view cut to `width` pixels wide (K scaled as --low_resolution does)."""
+    import numpy as np
+    from arnerf_tpu_torch.datasets.synthetic import SyntheticDataset
+    from arnerf_tpu_torch.opt import get_opts
+    from arnerf_tpu_torch.show_gui import NGPGUI
+    hp = get_opts(GUI_ARGV + ["--ckpt_path", ckpt, "--device", str(dev),
+                              *extra])
+    ds = SyntheticDataset(downsample=hp.downsample, read_meta=False)
+    low = ds.img_wh[0] / width if width else 1.0
+    K = np.asarray(ds.K, np.float32).copy()
+    K[:2] /= low
+    wh = (int(ds.img_wh[0] / low), int(ds.img_wh[1] / low))
+    return NGPGUI(hp, K, wh, baked=baked)
+
+
+def _frames(gui, n):
+    """n orbiting frames: their ms (wall, to the image on the host)."""
+    import numpy as np
+    ms = []
+    for _ in range(n):
+        gui.cam.orbit(30, 0)
+        img = gui.render_cam(gui.cam)
+        if not np.isfinite(img).all() or img.min() < 0 or img.max() > 1:
+            raise AssertionError("a viewer frame is not finite in [0, 1]")
+        ms.append(1e3 * gui.dt)
+    return ms
+
+
+def live_preview(state, dev):
+    """A baked viewer on the train phase's mid-run checkpoint; the final
+    checkpoint then takes its place, as the concurrent training run would
+    write it, and refresh_bake re-bakes a bounded delta."""
+    import numpy as np
+    from arnerf_tpu_torch.ops import fused_head as fh
+    live = VIEWER_DIR / "live.npz"
+    shutil.copyfile(state["train_mid_ckpt"], live)
+    fh.reset_launches()
+    gui = _gui(str(live), dev, baked=True)
+    bake_launches = fh.launches
+    before_ms = _frames(gui, 4)
+    prev = gui.baked
+    t_old = os.path.getmtime(live)
+    shutil.copyfile(state["train_ckpt"], live)
+    t_new = max(time.time(), t_old + 1.0)
+    os.utime(live, (t_new, t_new))
+    fh.reset_launches()
+    advanced = gui.refresh_bake()
+    delta_launches = fh.launches
+    stats = dict(gui.delta_stats or {})
+    after_ms = _frames(gui, 4)
+    # the most a budgeted delta may re-bake: each moved cell's voxels
+    # dilated by one voxel, the refresh stripe's voxels, and the voxels
+    # entering the occupancy
+    cfg, B = gui.cfg, gui.baked.resolution
+    G = cfg.grid_size
+    f = B // G
+    occ = int(gui.grid_state.occ_flat.sum())
+    budget = max(1024, occ // 16)
+    stripe = -(-G ** 3 // 16)
+    entering = int((gui.baked.src_mask & ~prev.src_mask).sum())
+    bound = budget * (f + 2) ** 3 + stripe * f ** 3 + entering
+    res = {"bake_s": gui.bake_seconds, "bake_launches": bake_launches,
+           "delta_s": stats.get("seconds"), "delta_launches": delta_launches,
+           "stats": stats, "bound": bound, "budget_cells": budget,
+           "frame_ms_before": before_ms, "frame_ms_after": after_ms,
+           "advanced": advanced, "again": gui.refresh_bake()}
+    print(f"viewer: live preview {res}", flush=True)
+    if not advanced or res["again"]:
+        raise AssertionError("refresh_bake did not advance once and only "
+                             "once on the new checkpoint")
+    if not 0 < stats["n_changed"] <= bound or not stats["frac"] < 1:
+        raise AssertionError(f"the delta is not bounded: {stats}, bound "
+                             f"{bound} voxels")
+    if not np.isfinite(gui.baked.rows[:, 0].sum().item()):
+        raise AssertionError("the delta bake is not finite")
+    state["viewer_gui"] = gui
+    return res
+
+
+def viewer_card_vs_cpu(state, dev):
+    """Card against CPU: a 64x64 network frame of the final checkpoint;
+    the live viewer's bake copied to the CPU through baked_frame_display_fn
+    at 64x64 from one key; and a 64^3 exact-corner delta bake from the
+    mid-run to the final checkpoint under the viewer's budget, then
+    DELTA_CHECK_K deltas on the card (the refresh stripes cover every
+    cell) against a fresh full bake."""
+    import numpy as np
+    import torch
+    from arnerf_tpu_torch.datasets.ray_utils import (get_ray_directions,
+                                                     get_rays)
+    from arnerf_tpu_torch.models import grid_state_init
+    from arnerf_tpu_torch.ops import threefry
+    from arnerf_tpu_torch.rendering_baked import (BakedField,
+                                                  baked_frame_display_fn,
+                                                  bake_ngp, bake_ngp_delta)
+    from arnerf_tpu_torch.training.ckpt import load_ckpt
+    cpu = torch.device("cpu")
+    out = {}
+    # network frame, f32: as reference_check
+    imgs, samples = {}, {}
+    sides = (("card", dev), ("cpu", cpu))
+    for side, d in sides:
+        g = _gui(state["train_ckpt"], d, width=64)
+        g.cam.orbit(200, -60)
+        imgs[side] = g.render_cam(g.cam)
+        samples[side] = g.mean_samples
+    err = float(np.abs(imgs["card"] - imgs["cpu"]).max())
+    out["network"] = {"max_abs_err": err, "samples_per_ray": samples,
+                      "mean": float(imgs["cpu"].mean())}
+    if err > 1e-3 or samples["card"] != samples["cpu"] \
+            or samples["cpu"] == 0:
+        raise AssertionError(f"viewer network frame card vs CPU: {out}")
+    # display frame of the live bake, 64x64, one key, both devices
+    gui = state["viewer_gui"]
+    card = gui.baked
+    host = BakedField(**{k: v.to(cpu) if torch.is_tensor(v) else v
+                         for k, v in vars(card).items()})
+    cam = gui.cam
+    K = np.asarray(cam.K, np.float32).copy()
+    K[:2] *= 64 / cam.W
+    pose = torch.as_tensor(np.asarray(cam.pose[:3], np.float32))
+    u8, stats = {}, {}
+    for (side, d), bk in zip(sides, (card, host)):
+        dirs = torch.as_tensor(get_ray_directions(64, 64, K), device=d)
+        ro, rd = get_rays(dirs, pose.to(d))
+        stats[side] = {}
+        u8[side] = baked_frame_display_fn(
+            bk, ro, rd, T_threshold=1e-2, color_window=4, img_wh=(64, 64),
+            white_bg=0.0)(threefry.prng_key(3), stats=stats[side]) \
+            .cpu().int()
+    px = (u8["card"] - u8["cpu"]).abs().amax(dim=1)
+    flips = int((px > 1).sum())
+    out["display"] = {"flipped": flips, "max_level_diff": int(px.max()),
+                      "rounds": (stats["card"]["rounds"],
+                                 stats["cpu"]["rounds"]),
+                      "lit_pixels": int((u8["cpu"].amax(dim=1) > 0).sum())}
+    if flips > RENDER_FLIP_PIXELS or stats["card"]["rounds"] \
+            != stats["cpu"]["rounds"] or out["display"]["lit_pixels"] == 0:
+        raise AssertionError(f"viewer display frame card vs CPU: {out}")
+    # the delta bake, exact corners, 64^3, the viewer's model (f32)
+    cfg = gui.cfg
+    bakes = {}
+    for side, d in sides:
+        p0, s0, _ = load_ckpt(state["train_mid_ckpt"],
+                              grid_template=grid_state_init(cfg, d), device=d)
+        p1, s1, _ = load_ckpt(state["train_ckpt"],
+                              grid_template=grid_state_init(cfg, d), device=d)
+        prev = bake_ngp(p0, s0, cfg, resolution=BAKE_CHECK_RES, stoch=False)
+        st = {}
+        budget = max(1024, int(s1.occ_flat.sum()) // 16)   # the viewer's
+        t0 = time.perf_counter()
+        delta = bake_ngp_delta(p1, s1, cfg, prev, refresh_k=DELTA_CHECK_K,
+                               stoch=False, stats=st, budget_cells=budget)
+        torch.cuda.synchronize()
+        bakes[side] = (delta, st, time.perf_counter() - t0, p1, s1)
+    (g, g_st, g_s, p1, s1), (c, c_st, c_s, _, _) = bakes["card"], bakes["cpu"]
+    rows_err = float((g.rows.cpu() - c.rows).abs().max() / c.rows.abs().max())
+    same_snap = all(np.array_equal(getattr(g, k), getattr(c, k))
+                    for k in ("src_density", "src_occ", "src_mask")) \
+        and g.bake_phase == c.bake_phase
+    cur = g
+    for _ in range(DELTA_CHECK_K - 1):
+        cur = bake_ngp_delta(p1, s1, cfg, cur, refresh_k=DELTA_CHECK_K,
+                             stoch=False, budget_cells=budget)
+    full = bake_ngp(p1, s1, cfg, resolution=BAKE_CHECK_RES, stoch=False)
+    conv_err = float((cur.rows - full.rows).abs().max()
+                     / full.rows.abs().max())
+    out["delta"] = {"stats": g_st, "stats_equal": g_st == c_st,
+                    "snapshots_equal": same_snap, "rows_err": rows_err,
+                    "seconds": {"card": g_s, "cpu": c_s},
+                    "converged_err": conv_err}
+    print(f"viewer: card vs CPU {out}", flush=True)
+    if g_st != c_st or not same_snap or rows_err > 1e-4 \
+            or conv_err > 1e-4 or not 0 < g_st["n_changed"]:
+        raise AssertionError(f"viewer delta bake card vs CPU: {out}")
+    return out
+
+
+def viewer_hdr_frames(state, dev):
+    """One render_cam on each HDR checkpoint of the hdr phase (the
+    --use_exposure model at exposures 1 and 8) at 200x200."""
+    import numpy as np
+    flags = {"exr": ["--dataset_name", "colmap_exr", "--use_EXR"],
+             "exposure": ["--dataset_name", "colmap", "--use_exposure"],
+             "pose": ["--dataset_name", "myblender", "--use_EXR"]}
+    out = {}
+    for name, ckpt in state["hdr_ckpts"].items():
+        for exposure in ((1.0, 8.0) if name == "exposure" else (1.0,)):
+            gui = _gui(ckpt, dev, width=200, extra=flags[name])
+            gui.exposure = exposure
+            img = gui.render_cam(gui.cam)
+            out[f"{name}@{exposure:g}"] = {
+                "mean": float(img.mean()), "max": float(img.max()),
+                "ms": 1e3 * gui.dt}
+            if not np.isfinite(img).all() or img.min() < 0 or img.max() > 1:
+                raise AssertionError(f"HDR frame {name}: not in [0, 1]")
+    print(f"viewer: HDR frames {out}", flush=True)
+    return out
+
+
+def viewer_phase(state, dev):
+    """The viewer on the train phase's checkpoint at 800x800: the entry
+    point headless on the network and the baked frame; the live preview's
+    delta bake; card against CPU; the HDR checkpoints' frames."""
+    shutil.rmtree(VIEWER_DIR, ignore_errors=True)
+    VIEWER_DIR.mkdir(parents=True)
+    ckpt = state["train_ckpt"]
+    net = gui_entry(ckpt, baked=False)
+    baked = gui_entry(ckpt, baked=True)
+    live = live_preview(state, dev)
+    launches = {"gui_network": net["frame_launches"],
+                "gui_bake": baked["launches_before_frames"]
+                + live["bake_launches"],
+                "gui_delta": live["delta_launches"]}
+    state["viewer_launches"] = launches
+    summary = {"network": net, "baked": baked, "live": live,
+               "launches": launches}
+    state["viewer_summary"] = summary
+    print(f"viewer summary: {summary}", flush=True)
+    if min(launches.values()) == 0 or baked["frame_launches"] != 0:
+        raise AssertionError(f"fused-head launches per path: {launches}, "
+                             f"baked frames {baked['frame_launches']}")
+    if net["wh"] != (800, 800) or baked["wh"] != (800, 800):
+        raise AssertionError("the viewer did not render 800x800 frames")
+    summary["card_vs_cpu"] = viewer_card_vs_cpu(state, dev)
+    if "hdr_ckpts" in state:
+        summary["hdr"] = viewer_hdr_frames(state, dev)
+    else:
+        raise AssertionError("no HDR checkpoints: the hdr phase failed")
+
+
+def profile_gui_frames(state, dev):
+    """One 800x800 viewer frame of each kind traced on the device: the
+    network frame and the baked display frame; wall (to the image on the
+    host), device busy and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    guis = {"network": _gui(state["train_ckpt"], dev),
+            "baked": state["viewer_gui"]}
+    for name, gui in guis.items():
+        gui.render_cam(gui.cam)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            gui.render_cam(gui.cam)
+        kernels, busy_ms = _busy(prof, ("cull", "prelude", "march", "color",
+                                        "first_hit", "field", "composite"))
+        wall_ms = 1e3 * gui.dt
+        share = f"{1 - busy_ms / wall_ms:.3f}" if kernels else "not measured"
+        print(f"profile[gui {name}]: wall {wall_ms:.1f} ms, device busy "
+              f"{busy_ms:.1f} ms, idle share {share}, {len(kernels)} device "
+              f"kernels/copies", flush=True)
 
 
 def main() -> int:
@@ -2106,6 +2438,7 @@ def main() -> int:
     phase("reference", reference_phase)
     phase("captures", lambda: captures_phase(state, dev))
     phase("hdr", lambda: hdr_phase(state, dev))
+    phase("viewer", lambda: viewer_phase(state, dev))
     try:   # measurements, not checks: their absence fails nothing
         profile_view(state.get("ckpt") or write_smoke_checkpoint(dev), dev)
         if "train_ckpt" in state:
@@ -2114,6 +2447,8 @@ def main() -> int:
             profile_train_block(state["trainer"])
         if "insert_insertor" in state:
             profile_insert_frame(state["insert_insertor"], dev)
+        if "viewer_gui" in state:
+            profile_gui_frames(state, dev)
     except Exception as e:   # noqa: BLE001 - the profiler is optional here
         print(f"profile: not measured ({type(e).__name__}: {e})", flush=True)
 
@@ -2162,6 +2497,10 @@ def main() -> int:
             if bf16 else 0
         by_path["hdr_eval"] = 0 if bf16 else state.get("hdr_eval_launches",
                                                        0)
+        # the viewer renders and bakes in f32: its network frames, its
+        # startup bakes and its live preview's delta bake
+        for k, v in state.get("viewer_launches", {}).items():
+            by_path[k] = 0 if bf16 else v
         kernels.append({
             "name": f"fused_field_head[{dtype_name}]", "route": "cuda",
             "source": "arnerf_tpu_torch/csrc/fused_head.cu",

@@ -86,7 +86,7 @@ def main():
         blocks, err = [], None
         t0 = time.perf_counter()
         try:
-            port_train.main(argv + ["--exp_name", label], callback=lambda s, m:
+            port_train.main(argv + ["--exp_name", label], callback=lambda s, m, _:
                             blocks.append((s, float(m["loss"]),
                                            float(m["psnr"]))))
         except FloatingPointError as e:

@@ -52,6 +52,7 @@ def test_forbidden_names_match_whole_modules():
 def test_port_file_list_is_complete():
     assert "arnerf_tpu_torch/ops/fused_head.py" in PORT_FILES
     assert "arnerf_tpu_torch/eval.py" in PORT_FILES
+    assert "arnerf_tpu_torch/show_gui.py" in PORT_FILES
     assert (REPO / "chip_smoke.py").exists()
 
 

@@ -251,7 +251,8 @@ def test_insert_entry_point_refusals(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="--device cpu"):
             t_main.main(SMALL_FLAGS)
     monkeypatch.setenv("ARNERF_INSERT_BAKED", "1")
-    with pytest.raises(NotImplementedError, match="rendering_baked"):
+    with pytest.raises(NotImplementedError,
+                       match="fused baked insert programs"):
         t_main.main(SMALL_FLAGS + ["--device", "cpu"])
     monkeypatch.delenv("ARNERF_INSERT_BAKED")
     with pytest.raises(NotImplementedError, match="not ported.*OpenEXR"):

@@ -380,7 +380,8 @@ def test_render_insert_object_matches_jax(pair, pca_path, sf_path,
 def test_unported_options_raise(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("ARNERF_INSERT_BAKED", "1")
-    with pytest.raises(NotImplementedError, match="rendering_baked"):
+    with pytest.raises(NotImplementedError,
+                       match="fused baked insert programs"):
         t_main.NGPInsertor(make_hparams("x"))
     monkeypatch.delenv("ARNERF_INSERT_BAKED")
     if not torch.cuda.is_available():

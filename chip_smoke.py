@@ -42,6 +42,16 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  saved frame (PNG + EXR). The fused head must run and the
                  segment sum must not; frames must be finite; one SG and one
                  SH frame at 64x64 in f32 must match the CPU's to 1e-3.
+                 Then ARNERF_INSERT_BAKED=1 on that prep's files: the bake
+                 (192^3, 16 directions), the same frames, then a shadow
+                 field and INSERT_FRAMES SH frames; the bake must launch
+                 the fused head, no frame may, the segment sum never; every
+                 frame but the saved one through the fused frame; 64x64
+                 f32 card vs CPU on the CPU's 64^3 bake: the fast SH probe
+                 to 1e-3, an SH (shadow field) frame to 1e-4 at all but
+                 RENDER_FLIP_PIXELS pixels, an SG (self shadow, SSDF) frame
+                 likewise off the object and its shadow, and to 5e-3, as
+                 the network SG frame, under them.
   real_updates - the segment sum in both modes on the updates of one real
                  post-warmup training step of the trained model (captured
                  from the hash-grid backward), against its plain version,
@@ -127,7 +137,8 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  The fused head must launch on the network frames, the
                  bakes and the delta.
 Then torch.profiler passes over one bf16 view, one baked view, one
-post-warmup training block and one AR frame print where their time goes;
+post-warmup training block and one network and one baked AR frame print
+where their time goes;
 the baked view's pass bakes with exact corners and prints that bake's
 seconds and its PSNR on the 4 views; then one network and one baked viewer
 frame (measurements only; they fail nothing).
@@ -154,6 +165,7 @@ MAIN_PATH_ROWS = 1 << 18        # ngp_forward_chunked's chunk: one launch
 TRAIN_SAMPLES = 8192 * 32       # batch x sample budget: one training step
 SMOKE_DIR = ROOT / "build" / "arnerf_tpu_torch" / "smoke"
 INSERT_FRAMES = 12              # object-move frames through the server
+INSERT_BAKE_CHECK_RES = 64      # card-vs-CPU baked AR frames (B^3 voxels)
 INSERT_PROBE_POINTS = 2048      # planar points of the probe precompute
 # card vs CPU at 64x64 in f32, max abs: the SH probe and the SH frame to
 # 1e-3; the SG frame to 5e-3, ~10x what rounding its inputs alone moves
@@ -1333,18 +1345,30 @@ def _synced(dev, fn):
     return run
 
 
+def _shadow_field_volume(path, seed=0):
+    """A seeded shadow-field export in the viewer's text layout (30^3
+    cells, 9 SH coefficients each)."""
+    import numpy as np
+    np.savetxt(path, np.random.default_rng(seed).normal(
+        2.0, 0.3, (30 ** 3, 9)), fmt="%.4f")
+
+
 def run_insert(ckpt, dev, downsample=6.25, frames=INSERT_FRAMES,
                probe_points=INSERT_PROBE_POINTS, radius=0.1, min_plane=1e5,
                scene=("--dataset_name", "synthetic"),
-               work=SMOKE_DIR / "insert", center=(0.22, 0.17, 0.12)):
+               work=SMOKE_DIR / "insert", center=(0.22, 0.17, 0.12),
+               baked=False):
     """The insertion server's path on `dev` for the scene's flags `scene`:
     the prep (insertor, surface cache and point cloud, planes, probe
     precompute cut to `probe_points`, 200 global-SH iterations) and then
     NGPServer behind a real socket with a viewer that sends the camera, the
     SSDF volume and `frames` frames of object moves (actions 1, 3, 6), one
     shadow-map frame and one saved frame, under `work`; the object, a
-    sphere of `radius`, moves from `center`. Returns the measurements;
-    checks nothing itself."""
+    sphere of `radius`, moves from `center`. `baked`: ARNERF_INSERT_BAKED=1
+    on the prep of an earlier run in `work` (its surface cache, point cloud
+    and global-SH checkpoint loaded), then the bake ("bake" stage), the
+    same frames, a shadow field (action 8: the SH pipeline) and `frames`
+    SH object moves. Returns the measurements; checks nothing itself."""
     import struct
     import threading
     import numpy as np
@@ -1353,10 +1377,13 @@ def run_insert(ckpt, dev, downsample=6.25, frames=INSERT_FRAMES,
     from arnerf_tpu_torch.insert.global_light import GlobalLightEstimator
     from arnerf_tpu_torch.ops import fused_head as fh
     from arnerf_tpu_torch.ops import segments as seg
+    from arnerf_tpu_torch.insert.insert_models import load_mat_sh_ckpt
     work.mkdir(parents=True, exist_ok=True)
     cwd = os.getcwd()
     os.chdir(work)
-    shutil.rmtree(work / "insert", ignore_errors=True)
+    if not baked:
+        shutil.rmtree(work / "insert", ignore_errors=True)
+    sh_frames = frames if baked else 0
     res = {"prep_s": {}, "launches": {}}
 
     def sync():
@@ -1384,26 +1411,43 @@ def run_insert(ckpt, dev, downsample=6.25, frames=INSERT_FRAMES,
     try:
         fh.reset_launches()
         seg.reset_launches()
-        ins = stage("insertor", lambda: im.NGPInsertor(
-            _insert_hparams(ckpt, downsample, dev.type, scene=scene)))
+        os.environ["ARNERF_INSERT_BAKED"] = "1" if baked else "0"
+        try:
+            ins = stage("insertor", lambda: im.NGPInsertor(
+                _insert_hparams(ckpt, downsample, dev.type, scene=scene)))
+        finally:
+            del os.environ["ARNERF_INSERT_BAKED"]
         stage("surface_and_point_cloud", ins.generate_point_cloud)
-        gle = stage("planes", lambda: GlobalLightEstimator(ins.gen_path))
-        stage("planes", lambda: gle.detect_planar_patch(min_plane))
-        n_plane = len(gle.t_pts)
-        keep = np.random.default_rng(0).permutation(n_plane)[:probe_points]
-        gle.t_pts, gle.t_rgbs, gle.t_normal = (
-            gle.t_pts[keep], gle.t_rgbs[keep], gle.t_normal[keep])
-        print(f"insert: {n_plane} planar points; the probe precompute is cut "
-              f"to {len(keep)} points x 2048 rays (the reference's pts_use "
-              f"2e6 would take hours)", flush=True)
-        stage("probe_precompute", lambda: gle.save_results(ins))
-        stage("global_sh_fit", lambda: ins.fit_global_sh(gle))
+        if baked:
+            results = os.path.join(ins.gen_path, "results")
+            shutil.rmtree(results)       # the network run's saved frame
+            os.makedirs(results)
+            gsh, _ = load_mat_sh_ckpt(os.path.join(
+                ins.gen_path, "mat_sh_000199.npz"), dev)
+            ins.global_sh = gsh["global_sh"].reshape(1, 9, 3)
+            stage("bake", ins._get_baked)
+        else:
+            gle = stage("planes", lambda: GlobalLightEstimator(ins.gen_path))
+            stage("planes", lambda: gle.detect_planar_patch(min_plane))
+            n_plane = len(gle.t_pts)
+            keep = np.random.default_rng(0).permutation(n_plane)[
+                :probe_points]
+            gle.t_pts, gle.t_rgbs, gle.t_normal = (
+                gle.t_pts[keep], gle.t_rgbs[keep], gle.t_normal[keep])
+            print(f"insert: {n_plane} planar points; the probe precompute is "
+                  f"cut to {len(keep)} points x 2048 rays (the reference's "
+                  f"pts_use 2e6 would take hours)", flush=True)
+            stage("probe_precompute", lambda: gle.save_results(ins))
+            stage("global_sh_fit", lambda: ins.fit_global_sh(gle))
         res["prep_samples"] = sum(samples)
         res["global_sh_dc"] = ins.global_sh[0, 0].tolist()
 
         # serving: NGPServer in a thread, this thread the viewer
         _ssdf_volume(work / "smoke_mesh.tar")
         os.environ["VIEWER_SG_PATH"] = str(work)
+        if sh_frames:
+            _shadow_field_volume(work / "smoke_sf.txt")
+            os.environ["VIEWER_SF_PATH"] = str(work)
         port = _free_port()
         holder, errors = {}, []
 
@@ -1419,6 +1463,9 @@ def run_insert(ckpt, dev, downsample=6.25, frames=INSERT_FRAMES,
                 if "srv" in holder:
                     holder["srv"].server.conn.close()
         fit = ins.env_opt.eval = _synced(dev, ins.env_opt.eval)
+        fused = []
+        frame_fn = ins._frame_fused_fn
+        ins._frame_fused_fn = lambda *a: fused.append(1) or frame_fn(*a)
         shaded = []
         insert_object = ins.render_insert_object
 
@@ -1477,6 +1524,10 @@ def run_insert(ckpt, dev, downsample=6.25, frames=INSERT_FRAMES,
                     + s_im.tobytes())
         frame(frames, 2)
         frame(frames + 1, 1, struct.pack("i", 1) + b"smoke")
+        if sh_frames:
+            viewer.send(8, b"smoke_sf")
+            for i in range(sh_frames):
+                frame(frames + 2 + i, 1)
         viewer.send(0)
         th.join(timeout=300)
         if errors:
@@ -1490,6 +1541,8 @@ def run_insert(ckpt, dev, downsample=6.25, frames=INSERT_FRAMES,
         res["frame_samples"] = frame_samples
         res["raster"] = raster.shape[:2]
         res["regular_frames"] = frames
+        res["sh_frames"] = sh_frames
+        res["fused_frames"] = len(fused)
         res["frames"] = shaded
         res["hw"] = (H, W)
         res["segment_sum_launches"] = dict(seg.launches)
@@ -1560,10 +1613,11 @@ def insert_card_vs_cpu(ckpt, ins_card, dev, downsample=0.5):
     return [float(np.abs(a - b).max()) for a, b in zip(*outs)], sensitivity
 
 
-def profile_insert_frame(ins, dev):
+def profile_insert_frame(ins, dev, label="network"):
     """Where one serving frame's time goes (probe + SG fit, object shade,
     dirty-rect render, SSDF shadow), called directly on the insertor the
-    server used: wall time, device busy time, idle share, top kernels."""
+    server used (`label`: its path): wall time, device busy time, idle
+    share, top kernels."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1591,17 +1645,18 @@ def profile_insert_frame(ins, dev):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = ("probe", "sg_fit", "shade", "rect", "shadow", "march",
-             "field", "composite")
+             "field", "composite", "cull", "prelude", "color")
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and e.name not in spans]
     if not kernels:
-        print(f"insert profile: wall {wall_ms:.1f} ms; device time not "
-              f"measured (no device events)", flush=True)
+        print(f"insert profile, {label}: wall {wall_ms:.1f} ms; device "
+              f"time not measured (no device events)", flush=True)
         return None
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    print(f"insert profile (one frame: probe + SG fit + shade + rect render "
-          f"+ SSDF shadow, {ins.W}x{ins.H}): wall {wall_ms:.1f} ms, device "
-          f"busy {busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
+    print(f"insert profile, {label} (one frame: probe + SG fit + shade + "
+          f"rect render + SSDF shadow, {ins.W}x{ins.H}): wall "
+          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (idle share "
+          f"{1 - busy_ms / wall_ms:.3f}), "
           f"{len(kernels)} device kernels/copies", flush=True)
     for e in prof.key_averages():
         if e.key in spans and e.device_type == DeviceType.CPU:
@@ -1612,12 +1667,21 @@ def profile_insert_frame(ins, dev):
 
 
 def insert_phase(state, dev):
-    """run_insert on the card at 800x800, from the train phase's
-    checkpoint (or the random-weights one), with its checks, then the
-    card-vs-CPU frame check at 64x64."""
-    import numpy as np
+    """The AR insertion server at 800x800 from the train phase's checkpoint
+    (or the random-weights one): the network path, then the baked field on
+    its prep (run even when the network part fails)."""
     ckpt = state.get("train_ckpt") or state.get("ckpt") \
         or write_smoke_checkpoint(dev)
+    try:
+        insert_network(state, dev, ckpt)
+    finally:
+        insert_baked(state, dev, ckpt)
+
+
+def insert_network(state, dev, ckpt):
+    """run_insert on the card, with its checks, then the card-vs-CPU frame
+    check at 64x64."""
+    import numpy as np
     res = run_insert(ckpt, dev)
     state["insert_launches"] = res["head_launches"]
     state["insert_insertor"] = res["insertor"]
@@ -1668,6 +1732,174 @@ def insert_phase(state, dev):
           flush=True)
     if any(e > tol for e, tol in zip(errs, INSERT_TOL)):
         raise AssertionError("card and CPU AR frames disagree")
+
+
+def insert_baked(state, dev, ckpt):
+    """ARNERF_INSERT_BAKED=1: run_insert on the network run's prep (its
+    files loaded), the bake at ARNERF_INSERT_BAKE_RES's default, then the
+    same frames, and INSERT_FRAMES SH frames on a shadow field. The bake
+    must launch the fused head, a frame never; the segment sum never runs;
+    every frame but the saved one goes through _try_render_insert_fused;
+    frames are 800x800 and finite; the saved files are there. Then
+    insert_baked_card_vs_cpu."""
+    import numpy as np
+    res = run_insert(ckpt, dev, baked=True)
+    ins = res["insertor"]
+    state["insert_baked_launches"] = res["head_launches"]
+    state["insert_baked_insertor"] = ins
+    n, m = res["regular_frames"], res["sh_frames"]
+    a1, a6 = (np.asarray(res["action_ms"][a]) for a in (1, 6))
+    fit, trip = np.asarray(res["sg_fit_ms"]), np.asarray(res["frame_ms"])
+    sg, sh = slice(1, n), slice(n + 3, n + 2 + m)   # after their first
+    n_frames = len(res["frames"])
+    summary = {
+        "bake_s": res["prep_s"]["bake"],
+        "bake_launches": res["launches"]["bake"],
+        "bake_voxels": int(ins._baked.rows_q.shape[0]) - 1,
+        "bake_res": ins._baked.resolution,
+        "sg_action1_ms": float(np.median(a1[sg])),
+        "sg_fit_ms": float(np.median(fit[sg])),
+        "sg_action6_ms": float(np.median(a6[sg])),
+        "sg_round_trip_ms": float(np.median(trip[sg])),
+        "sh_action1_ms": float(np.median(a1[sh])),
+        "sh_action6_ms": float(np.median(a6[sh])),
+        "sh_round_trip_ms": float(np.median(trip[sh])),
+        "fused_frames": res["fused_frames"], "frames": n_frames,
+        "network": state.get("insert_summary")}
+    print(f"insert baked: prep seconds {res['prep_s']}; fused-head launches "
+          f"{res['launches']}; serving (ms; first frames are warm-up): "
+          f"action 1 {a1.tolist()}; SG fit {fit.tolist()}; action 6 "
+          f"{a6.tolist()}; round trip {trip.tolist()}; fused-head launches "
+          f"per frame {res['frame_launches']}; segment_sum launches "
+          f"{res['segment_sum_launches']}; saved {res['saved']}", flush=True)
+    print(f"insert baked summary (medians after warm-up; {n - 1} SG frames "
+          f"with SSDF shadow, {m - 1} SH frames with the shadow field): "
+          f"{summary}", flush=True)
+    state["insert_baked_summary"] = summary
+    if res["launches"]["bake"] == 0:
+        raise AssertionError("the bake launched no fused-head kernel")
+    if max(res["frame_launches"]) != 0:
+        raise AssertionError(f"a baked frame launched the fused head: "
+                             f"{res['frame_launches']}")
+    if any(res["segment_sum_launches"].values()):
+        raise AssertionError(f"the segment sum ran in the baked insert "
+                             f"path: {res['segment_sum_launches']}")
+    if res["fused_frames"] != n_frames - 1 or m < 2:
+        raise AssertionError(f"{res['fused_frames']} of {n_frames} frames "
+                             f"through the fused frame ({m} SH)")
+    if not {"0_smoke.png", "0_smoke.exr", "0_info.npz"} <= set(res["saved"]):
+        raise AssertionError(f"the saved frame is missing: {res['saved']}")
+    for f in res["frames"]:
+        if f.shape != (800, 800, 3) or not np.isfinite(f).all():
+            raise AssertionError(f"bad baked frame: {f.shape}, finite "
+                                 f"{np.isfinite(f).all()}")
+    summary["card_vs_cpu"] = insert_baked_card_vs_cpu(ckpt, ins, dev)
+
+
+def insert_baked_card_vs_cpu(ckpt, ins_card, dev, downsample=0.5):
+    """Baked AR frames at 64x64 in f32 on the CPU and on the card: the
+    CPU's bake (exact corners, INSERT_BAKE_CHECK_RES^3) moved to the card,
+    the same light, volumes and object raster, the same key. The fast SH
+    probe's coefficients to INSERT_TOL[0]; an SH frame (neural BRDF,
+    shadow field) to 1e-4 at all but RENDER_FLIP_PIXELS pixels (a
+    threshold decision of the renderer may flip on an ulp); an SG frame
+    (self shadow, SSDF shadow) likewise at the pixels off the object and
+    its shadow (the baked rect alone), and to INSERT_TOL[1], as the
+    network SG frame, at the object's pixels (depth > 1e-6) and the
+    pixels that the SSDF shadow darkens by more than 1e-5 on either
+    device, where the SG lobes' conditioning acts. Both frames go through
+    the fused frame. Prints each region's pixels, its pixels over 1e-4
+    and its largest error."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from arnerf_tpu_torch.insert import main as im
+    from arnerf_tpu_torch.insert.envfit import trans_raw_sg
+    from arnerf_tpu_torch.ops import threefry
+    from arnerf_tpu_torch.rendering_baked import BakedField
+    work = SMOKE_DIR / "insert"
+    cwd = os.getcwd()
+    os.chdir(work)
+    os.environ["ARNERF_INSERT_BAKED"] = "1"
+    os.environ["ARNERF_INSERT_BAKE_RES"] = str(INSERT_BAKE_CHECK_RES)
+    try:
+        outs, fused, bake, shadowed = [], [], None, []
+        for d in (torch.device("cpu"), dev):
+            ins = im.NGPInsertor(_insert_hparams(ckpt, downsample, d.type,
+                                                 "float32"))
+            ins.cfg = dataclasses.replace(ins.cfg, fused_head=True)
+            if bake is None:
+                t0 = time.perf_counter()
+                bake = ins._get_baked()
+                bake_s = time.perf_counter() - t0
+            else:
+                ins._baked = BakedField(**{
+                    k: v.to(d) if torch.is_tensor(v) else v
+                    for k, v in vars(bake).items()})
+            ins.global_sh = ins_card.global_sh.to(d)
+            ins.set_sg_shadow(str(work / "smoke_mesh.tar"))
+            ins.set_sf(os.path.join(ins_card.gen_path, "model_data",
+                                    "smoke_sf.npz"))
+            frame_fn = ins._frame_fused_fn
+            ins._frame_fused_fn = \
+                lambda *a, f=frame_fn: fused.append(1) or f(*a)
+            pose = ins.dataset.poses[0]
+            center = (0.22, 0.17, 0.12)
+            bbox, raster = sphere_raster(pose, ins.K, ins.H, ins.W, center,
+                                         0.1)
+            raster = np.ascontiguousarray(raster[::-1])
+            kw = dict(model_bbox=bbox, model_bbox_last=None,
+                      model_radius=0.1, model_pos=center,
+                      model_rot_inv=np.eye(3, dtype=np.float32),
+                      gen_shadow=1)
+            ins.key = threefry.prng_key(7)
+            sh = ins.generate_probe(list(center), sh_probe=True)
+            rgb_sh = ins.render_insert_object(
+                raster[..., :3], raster[..., 3], pose, sh, 0.5, 0.4,
+                use_sg_base=False, sg_use_self_shadow=False, **kw)
+            rgb_sg = ins.render_insert_object(
+                raster[..., :3], raster[..., 3], pose,
+                trans_raw_sg(ins_card.env_opt.lgt_sgs.to(d)), **kw)
+            # last_rgb is the frame before the shadow (LDR: no tonemap)
+            shadowed.append(np.abs(
+                rgb_sg - ins.last_rgb.cpu().numpy()).max(axis=-1) > 1e-5)
+            outs.append((sh.cpu().numpy(), rgb_sh, rgb_sg))
+    finally:
+        os.chdir(cwd)
+        del os.environ["ARNERF_INSERT_BAKED"]
+        del os.environ["ARNERF_INSERT_BAKE_RES"]
+    (sh_c, *frames_c), (sh_g, *frames_g) = outs
+    res = {"bake_res": INSERT_BAKE_CHECK_RES, "cpu_bake_s": bake_s,
+           "voxels": int(bake.rows_q.shape[0]) - 1,
+           "probe_err": float(np.abs(sh_g - sh_c).max()), "frames": {}}
+    (hs, ws), (hl, wl) = bbox
+    on_object = np.zeros(shadowed[0].shape, bool)
+    on_object[hs:hl, ws:wl] = raster[..., 3] > 1e-6
+    in_shadow = (shadowed[0] | shadowed[1]) & ~on_object
+    regions = {"sh": {"all": np.ones_like(on_object)},
+               "sg": {"object": on_object, "shadow": in_shadow,
+                      "rest": ~(on_object | in_shadow)}}
+    for name, g, c in zip(("sh", "sg"), frames_g, frames_c):
+        if not np.isfinite(g).all():
+            raise AssertionError(f"non-finite baked card frame ({name})")
+        px = np.abs(g - c).max(axis=-1)
+        res["frames"][name] = {
+            region: {"pixels": int(m.sum()),
+                     "over_1e-4": int((px[m] > 1e-4).sum()),
+                     "max_err": float(px[m].max()) if m.any() else 0.0}
+            for region, m in regions[name].items()}
+    print(f"insert baked: card vs CPU at 64x64 f32 on the CPU's bake: {res}; "
+          f"fused frames {len(fused)} of 4", flush=True)
+    if len(fused) != 4:
+        raise AssertionError("a card-vs-CPU frame missed the fused frame")
+    sh, sg = res["frames"]["sh"], res["frames"]["sg"]
+    if res["probe_err"] > INSERT_TOL[0] \
+            or sh["all"]["over_1e-4"] > RENDER_FLIP_PIXELS \
+            or sg["rest"]["over_1e-4"] > RENDER_FLIP_PIXELS \
+            or max(sg["object"]["max_err"],
+                   sg["shadow"]["max_err"]) > INSERT_TOL[1]:
+        raise AssertionError("card and CPU baked AR frames disagree")
+    return res
 
 
 def write_captures(dev):
@@ -2447,6 +2679,9 @@ def main() -> int:
             profile_train_block(state["trainer"])
         if "insert_insertor" in state:
             profile_insert_frame(state["insert_insertor"], dev)
+        if "insert_baked_insertor" in state:
+            profile_insert_frame(state["insert_baked_insertor"], dev,
+                                 "baked")
         if "viewer_gui" in state:
             profile_gui_frames(state, dev)
     except Exception as e:   # noqa: BLE001 - the profiler is optional here
@@ -2472,6 +2707,9 @@ def main() -> int:
                    "train_validation":
                        state.get("train_val_launches", 0) if bf16 else 0,
                    "insert": state.get("insert_launches", 0) if bf16 else 0,
+                   # ARNERF_INSERT_BAKED=1: its bake (bf16), no frame
+                   "insert_baked":
+                       state.get("insert_baked_launches", 0) if bf16 else 0,
                    # the eval entry point bakes in f32 (ARNERF_EVAL_BAKED)
                    "baked": 0 if bf16 else state.get("baked_launches", 0),
                    # the --eval_lpips run's validation renders (bf16)

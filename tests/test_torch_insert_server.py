@@ -73,6 +73,30 @@ def _sphere_maps(h, w):
     return np.concatenate([nrm, depth[..., None]], -1).astype(np.float32)
 
 
+def _serve(ins):
+    """NGPServer(ins) in a thread on a free port, and the viewer connected
+    to it. Returns (thread, holder of the server, errors, viewer)."""
+    port = _free_port()
+    holder, errors = {}, []
+
+    def serve():
+        try:
+            holder["srv"] = srv = t_main.NGPServer(ins, port=port)
+            srv.run()
+        except Exception as e:   # noqa: BLE001 - reported by the test
+            errors.append(e)
+            raise
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    for _ in range(200):
+        try:
+            return th, holder, errors, FakeViewer(port)
+        except OSError:
+            threading.Event().wait(0.05)
+    raise AssertionError("the server did not listen")
+
+
 def test_server_protocol_all_actions(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     orig = t_dsets.dataset_dict["synthetic"]
@@ -104,27 +128,7 @@ def test_server_protocol_all_actions(tmp_path, monkeypatch):
     monkeypatch.setenv("VIEWER_SG_PATH", str(tmp_path))
     monkeypatch.setenv("VIEWER_SF_PATH", str(tmp_path))
 
-    port = _free_port()
-    holder, errors = {}, []
-
-    def serve():
-        try:
-            holder["srv"] = srv = t_main.NGPServer(ins, port=port)
-            srv.run()
-        except Exception as e:   # noqa: BLE001 - reported by the test
-            errors.append(e)
-            raise
-
-    th = threading.Thread(target=serve, daemon=True)
-    th.start()
-    viewer = None
-    for _ in range(200):
-        try:
-            viewer = FakeViewer(port)
-            break
-        except OSError:
-            threading.Event().wait(0.05)
-    assert viewer is not None
+    th, holder, errors, viewer = _serve(ins)
 
     # handshake: H, W, focal; blender transform; blender scale
     h, w, f = struct.unpack("iif", viewer.recv())
@@ -196,20 +200,104 @@ def test_server_protocol_all_actions(tmp_path, monkeypatch):
                           / "model_data" / "mesh.npz")
 
 
+class _StubServer:
+    """The JAX server's transport, without a socket: it keeps what the
+    server sends."""
+
+    def __init__(self, *a, **k):
+        self.sent = []
+
+    def send(self, message):
+        self.sent.append(message)
+
+
+def test_baked_server_frames_match_jax(tmp_path, monkeypatch):
+    """ARNERF_INSERT_BAKED=1: the port's server behind the socket and the
+    JAX server (its transport stubbed) take the same viewer messages, the
+    camera, a shadow field (the SH pipeline) and two object moves (actions
+    1, 3 and 6: the fast SH probe and the baked frame with the shadow
+    field), on the same model, bake (JAX's, copied) and keys. Their
+    frames agree to 1e-5 and both end with the same key."""
+    import jax
+    import arnerf_tpu.insert.main as j_main
+    from tests.test_torch_baked import _to_port
+    from tests.test_torch_insertor import FH_PRETAB, build_pair
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("ARNERF_INSERT_BAKED", "1")
+    monkeypatch.setenv("ARNERF_INSERT_BAKE_RES", "32")
+    monkeypatch.delenv("DISPLAY", raising=False)
+    monkeypatch.setattr(t_sg_shadow, "get_fh_table",
+                        lambda: np.load(FH_PRETAB))
+    j_ins, t_ins = build_pair(monkeypatch, img=16, n_train=2)
+    t_ins._baked = _to_port(j_ins._get_baked())
+    frames = {}
+    for name, ins in (("jax", j_ins), ("port", t_ins)):
+        ins.blender_trans = np.eye(4, dtype=np.float32)
+        ins.blender_scale = 1.0
+        ins.global_sh = ins.global_sh * 0 + 0.4
+        frames[name] = []
+
+        def keep(*a, _f=ins.render_insert_object, _out=frames[name], **k):
+            _out.append(np.asarray(_f(*a, **k)))
+            return _out[-1]
+        ins.render_insert_object = keep
+    np.savetxt(tmp_path / "mesh.txt", np.random.default_rng(0).normal(
+        2.0, 0.3, (30 ** 3, 9)), fmt="%.4f")
+    monkeypatch.setenv("VIEWER_SF_PATH", str(tmp_path))
+
+    fused = []
+    frame_fn = t_ins._frame_fused_fn
+    t_ins._frame_fused_fn = lambda *a: fused.append(1) or frame_fn(*a)
+    monkeypatch.setattr(j_main, "Server", _StubServer)
+    j_srv = j_main.NGPServer(j_ins)
+    th, holder, errors, viewer = _serve(t_ins)
+    for _ in range(3):
+        viewer.recv()                                # the handshake
+    rot = np.eye(3, dtype=np.float32).tobytes()
+    pose_gl = np.eye(4, dtype=np.float32)
+    pose_gl[:3, 3] = [0.0, 0.1, 1.2]
+    msgs = [(2, struct.pack("f" * 16, *pose_gl.ravel())), (8, b"mesh")]
+    for pos, bbox in (((0.0, 0.0, 0.0), [[4, 4], [12, 12]]),
+                      ((0.02, 0.0, 0.01), [[5, 3], [13, 11]])):
+        (hs, ws), (hl, wl) = bbox
+        msgs += [(1, struct.pack("ifff", 1, *pos) + rot),
+                 (3, struct.pack("fiiii", 0.15, hs, ws, hl, wl)
+                  + _sphere_maps(hl - hs, wl - ws).tobytes()),
+                 (6, b"")]
+    for aid, body in msgs:
+        j_srv.act_dict[aid](body)
+        if aid == 6:
+            viewer.render(body)
+        else:
+            viewer.action(aid, body)
+    viewer.action(0)
+    th.join(timeout=120)
+    assert not th.is_alive() and not errors
+    assert not holder["srv"].use_sg_base and not j_srv.use_sg_base
+    assert len(frames["port"]) == len(frames["jax"]) == len(fused) == 2
+    for got, want in zip(frames["port"], frames["jax"]):
+        assert got.shape == (16, 16, 3) and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(holder["srv"].sh.numpy(), np.asarray(j_srv.sh),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(t_ins.key, np.asarray(j_ins.key))
+    assert not np.array_equal(j_ins.key, jax.random.PRNGKey(0))
+
+
 SMALL_FLAGS = ["--dataset_name", "synthetic", "--grid_size", "32",
                "--n_levels", "4", "--log2_hashmap_size", "12"]
 
 
-def test_insert_entry_point_serves_on_cpu(tmp_path):
-    """python -m arnerf_tpu_torch.insert.main --device cpu: the prep
-    (surface cache, point cloud) and the server, which answers a viewer
-    until it sends action 0."""
+def _entry_point(tmp_path, drive, **env):
+    """Run python -m arnerf_tpu_torch.insert.main --device cpu (16x16, no
+    global SH) under `env`, connect a viewer, check the handshake, call
+    drive(viewer), send action 0; returns the process's output."""
     import subprocess
     import sys
     import time
     from pathlib import Path
     repo = Path(__file__).resolve().parent.parent
-    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="2")
+    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="2", **env)
     proc = subprocess.Popen(
         [sys.executable, "-m", "arnerf_tpu_torch.insert.main", "--device",
          "cpu", "--downsample", "0.125", "--exp_name", "cli",
@@ -231,9 +319,7 @@ def test_insert_entry_point_serves_on_cpu(tmp_path):
         assert struct.unpack("iif", viewer.recv())[:2] == (16, 16)
         viewer.recv()
         viewer.recv()
-        viewer.action(2, struct.pack("f" * 16, *np.eye(4, dtype=np.float32)
-                                     .ravel()))
-        viewer.render()
+        drive(viewer)
         viewer.action(0)
         out, _ = proc.communicate(timeout=60)
     finally:
@@ -243,6 +329,33 @@ def test_insert_entry_point_serves_on_cpu(tmp_path):
     for name in ("pc.ply", "btrans.npy", "surface.npy"):
         assert (gen / name).exists()
     assert "jax" not in out.lower()
+    return out
+
+
+def test_insert_entry_point_serves_on_cpu(tmp_path):
+    """python -m arnerf_tpu_torch.insert.main --device cpu: the prep
+    (surface cache, point cloud) and the server, which answers a viewer
+    until it sends action 0."""
+    def drive(viewer):
+        viewer.action(2, struct.pack("f" * 16, *np.eye(4, dtype=np.float32)
+                                     .ravel()))
+        viewer.render()
+    _entry_point(tmp_path, drive)
+
+
+def test_insert_entry_point_serves_baked_on_cpu(tmp_path):
+    """ARNERF_INSERT_BAKED=1 python -m arnerf_tpu_torch.insert.main
+    --device cpu: an object move bakes the field (16^3 here) for its SG
+    probe, and a frame is served."""
+    def drive(viewer):
+        viewer.action(2, struct.pack("f" * 16, *np.eye(4, dtype=np.float32)
+                                     .ravel()))
+        viewer.action(1, struct.pack("ifff", 0, 0.0, 0.0, 0.0)
+                      + np.eye(3, dtype=np.float32).tobytes())
+        viewer.render()
+    out = _entry_point(tmp_path, drive, ARNERF_INSERT_BAKED="1",
+                       ARNERF_INSERT_BAKE_RES="16")
+    assert "insert: baked 16^3 probe field" in out
 
 
 def test_insert_entry_point_refusals(tmp_path, monkeypatch):
@@ -250,11 +363,6 @@ def test_insert_entry_point_refusals(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             t_main.main(SMALL_FLAGS)
-    monkeypatch.setenv("ARNERF_INSERT_BAKED", "1")
-    with pytest.raises(NotImplementedError,
-                       match="fused baked insert programs"):
-        t_main.main(SMALL_FLAGS + ["--device", "cpu"])
-    monkeypatch.delenv("ARNERF_INSERT_BAKED")
     with pytest.raises(NotImplementedError, match="not ported.*OpenEXR"):
         t_main.main(["--dataset_name", "rtmv", "--device", "cpu"])
 

@@ -73,9 +73,10 @@ def sphere_occupancy(G):
         .reshape(-1)
 
 
-def build_pair(monkeypatch, img=24, n_train=3, fused_head=True):
+def build_pair(monkeypatch, img=24, n_train=3, fused_head=True, **over):
     """(JAX insertor, port insertor) on the same scene, model and
-    occupancy. Call from inside the directory the outputs may go to."""
+    occupancy; `over` sets flags of both. Call from inside the directory
+    the outputs may go to."""
     j_orig = j_dsets.dataset_dict["synthetic"]
     t_orig = t_dsets.dataset_dict["synthetic"]
     monkeypatch.setitem(j_dsets.dataset_dict, "synthetic", lambda **kw: j_orig(
@@ -91,8 +92,8 @@ def build_pair(monkeypatch, img=24, n_train=3, fused_head=True):
                          ("sh_render_core", (6, 7, 8, 10))):
         monkeypatch.setattr(j_main, name, jax.jit(
             getattr(j_main, name), static_argnums=static))
-    j_ins = j_main.NGPInsertor(make_hparams("t_jax"))
-    t_ins = t_main.NGPInsertor(make_hparams("t_port"))
+    j_ins = j_main.NGPInsertor(make_hparams("t_jax", **over))
+    t_ins = t_main.NGPInsertor(make_hparams("t_port", **over))
     j_ins.cfg = JConfig(scale=0.5, **SMALL)
     j_ins.params = j_init(jax.random.PRNGKey(0), j_ins.cfg)
     occ = sphere_occupancy(j_ins.cfg.grid_size)
@@ -379,11 +380,6 @@ def test_render_insert_object_matches_jax(pair, pca_path, sf_path,
 
 def test_unported_options_raise(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("ARNERF_INSERT_BAKED", "1")
-    with pytest.raises(NotImplementedError,
-                       match="fused baked insert programs"):
-        t_main.NGPInsertor(make_hparams("x"))
-    monkeypatch.delenv("ARNERF_INSERT_BAKED")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             t_main.NGPInsertor(make_hparams("x", device="cuda"))

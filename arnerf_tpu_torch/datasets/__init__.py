@@ -1,7 +1,7 @@
 """Dataset registry (port of arnerf_tpu/datasets/__init__.py; reference
-datasets/__init__.py:11-17): the procedural `synthetic` scene, the four
-LDR loaders and the three OpenEXR loaders. `rtmv` is not ported:
-`unported_reason` says why."""
+datasets/__init__.py:11-17): the procedural `synthetic` scene, the five
+LDR loaders (rtmv reads the PNGs prepare_rtmv writes) and the three
+OpenEXR loaders."""
 
 from .colmap import ColmapDataset
 from .colmap_exr import ColmapEXRDataset
@@ -10,6 +10,7 @@ from .myblender import MyBlenderDataset
 from .nerf import NeRFDataset
 from .nerfpp import NeRFPPDataset
 from .nsvf import NSVFDataset
+from .rtmv import RTMVDataset
 from .synthetic import SyntheticDataset
 
 dataset_dict = {
@@ -18,6 +19,7 @@ dataset_dict = {
     "nsvf": NSVFDataset,
     "colmap": ColmapDataset,
     "nerfpp": NeRFPPDataset,
+    "rtmv": RTMVDataset,
     "colmap_exr": ColmapEXRDataset,
     "colmap_real_exr": ColmapRealEXRDataset,
     "myblender": MyBlenderDataset,
@@ -25,19 +27,13 @@ dataset_dict = {
 
 EXR_DATASETS = ("colmap_exr", "colmap_real_exr", "myblender")
 
-UNPORTED = {
-    "rtmv": "RTMV ships OpenEXR frames, which the JAX loader "
-            "(arnerf_tpu/datasets/rtmv.py:61) sends through the LDR branch "
-            "of read_image (decoded as an LDR image and divided by 255); "
-            "the port does not copy that fault (ROADMAP section 3)"}
-
 
 def unported_reason(name: str):
     """None for a dataset the port loads, else why it does not."""
     if name in dataset_dict:
         return None
-    reason = UNPORTED.get(name, "no such dataset")
-    return f"dataset {name!r} is not ported to arnerf_tpu_torch: {reason}"
+    return f"dataset {name!r} is not ported to arnerf_tpu_torch: no such " \
+        "dataset"
 
 
 def loader_kwargs(hparams, device, **extra) -> dict:

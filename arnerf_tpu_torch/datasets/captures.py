@@ -19,6 +19,9 @@ formats, for runs of the file loaders without a downloaded dataset.
 * `write_hdr_nerf_capture`: HDR-NeRF's synthetic layout for `colmap` with
   exposures (`HDR-NeRF/syndata/<scene>/`): 35 views, LDR PNGs of that HDR
   radiance at the scene's five exposures through a gamma camera curve.
+* `write_rtmv_capture`: an RTMV scene as it ships, before
+  `python -m arnerf_tpu_torch.prepare_rtmv`: `NNNNN.json` (`camera_data`)
+  and `NNNNN.exr` frames of linear radiance over a background of 1.
 
 The scene (`synthetic.py`'s at scale 0.5) is rendered by
 `render_analytic` on `device`; PNG rows are filtered with types 0-4 in
@@ -273,3 +276,46 @@ def write_hdr_nerf_capture(parent, wh=(400, 400), focal=350.0,
     _write_sparse(root, [f"{i:03d}.png" for i in range(35)], poses, wh,
                   focal, n_points, device)
     return root, {k: [img for _, img in v] for k, v in jobs.items()}
+
+
+RTMV_BOX_CENTER = (0.1, -0.2, 0.3)     # scene_center_3d_box of the capture
+
+
+def write_rtmv_capture(root, n_frames=110, wh=(8, 8), focal=10.0,
+                       n_samples=64, device="cpu"):
+    """An RTMV scene of the analytic scene: frame i is `{i:05d}.json`
+    (`camera_data`: `cam2world` as RTMV stores it, transposed, in OpenGL
+    axes; `intrinsics`, `width`, `height` and the scene box, a unit cube
+    centred at RTMV_BOX_CENTER) and `{i:05d}.exr` (HALF, ZIP), write_colmap
+    capture's ring cameras. In a root whose path holds 'bricks' the loader
+    re-centres and rescales the poses by the box, so the file's
+    translations are scaled the other way: the loader gives back the
+    cameras rendered either way. The default 110 frames leave 5 in the
+    test split (105-150). Returns [float32 (h, w, 3) radiance]."""
+    w, h = wh
+    K, poses, images, opacity = _ring_views(n_frames, wh, focal, n_samples,
+                                            device, seed=8)
+    center = np.array(RTMV_BOX_CENTER)
+    scale = 0.5 * 1.05                   # the loader's box half-size x 1.05
+    os.makedirs(root, exist_ok=True)
+    jobs = []
+    for i, (c2w, rgb, opa) in enumerate(zip(poses, images, opacity)):
+        c2w = np.array(c2w, np.float64)
+        if "bricks" in root:
+            c2w[:, 3] = c2w[:, 3] * 2 * scale + center
+        c2w[:, 1:3] *= -1                # -> OpenGL axes
+        cam2world = np.concatenate([c2w, [[0, 0, 0, 1.0]]]).T
+        meta = {"camera_data": {
+            "cam2world": cam2world.tolist(),
+            "intrinsics": {"fx": float(K[0, 0]), "fy": float(K[1, 1]),
+                           "cx": float(K[0, 2]), "cy": float(K[1, 2])},
+            "width": w, "height": h,
+            "scene_center_3d_box": center.tolist(),
+            "scene_min_3d_box": (center - 0.5).tolist(),
+            "scene_max_3d_box": (center + 0.5).tolist()}}
+        with open(os.path.join(root, f"{i:05d}.json"), "w") as f:
+            json.dump(meta, f)
+        jobs.append((os.path.join(root, f"{i:05d}.exr"),
+                     (rgb + (1 - opa)).astype(np.float32)))
+    _write_all(jobs, exr=True)
+    return [img for _, img in jobs]

@@ -41,13 +41,46 @@ from .opt import get_opts, model_config
 
 def _refuse_unported(hparams):
     from .datasets import unported_reason
-    if hparams.num_gpus > 1 or hparams.model_parallel > 1:
-        raise SystemExit("--num_gpus > 1 and --model_parallel > 1 (DDP, "
-                         "sharded tables) are not ported to arnerf_tpu_torch "
-                         "yet; use the JAX train.py")
     reason = unported_reason(hparams.dataset_name)
     if reason:
         raise SystemExit(reason)
+    if hparams.model_parallel > 1 and \
+            hparams.num_gpus % hparams.model_parallel:
+        raise ValueError('--num_gpus must be a multiple of '
+                         '--model_parallel')
+
+
+def _launch(argv, hparams, device):
+    """--num_gpus N outside torchrun: run this entry point as N ranks."""
+    from .parallel.launch import launch
+    n = hparams.num_gpus
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        raise RuntimeError(f"--num_gpus {n} needs {n} GPUs, but "
+                           f"{torch.cuda.device_count()} GPU(s) are "
+                           f"visible")
+    launch(["-m", "arnerf_tpu_torch.train", *argv], n,
+           cpu=device.type == "cpu")
+    return {"ranks": n,
+            "ckpt_dir": f"ckpts/{hparams.dataset_name}/{hparams.exp_name}"}
+
+
+def _join_group(hparams, device):
+    """Under torchrun's environment: join the group and lay its ranks out
+    (data parallel, or --model_parallel ranks a table). Returns (device,
+    mesh), mesh None when WORLD_SIZE is not set."""
+    import torch.distributed as dist
+    from .parallel import init_distributed, make_mesh, make_mesh_2d
+    rank_device = init_distributed(device)
+    if rank_device is None:
+        return device, None
+    world = dist.get_world_size()
+    if hparams.num_gpus not in (1, world):
+        raise ValueError(f"--num_gpus {hparams.num_gpus} but the process "
+                         f"group has {world} ranks")
+    n_mp = hparams.model_parallel    # divides world: _refuse_unported
+    mesh = make_mesh_2d(world // n_mp, n_mp) if n_mp > 1 \
+        else make_mesh(world)
+    return rank_device, mesh
 
 
 def depth2img(depth):
@@ -59,23 +92,41 @@ def depth2img(depth):
 
 
 def main(argv=None, callback=None) -> dict:
-    """Train, save, validate. Returns the trainer and the test metrics.
-    callback(step, metrics, trainer), if given, runs after every training
-    block."""
+    """Train, save, validate. Returns the trainer and the test metrics
+    (empty on ranks other than 0). callback(step, metrics, trainer), if
+    given, runs after every training block, on every rank. With
+    --num_gpus > 1 and no WORLD_SIZE, starts the ranks, waits for them and
+    returns {"ranks", "ckpt_dir"}."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     hparams = get_opts(argv)
     if hparams.val_only and not hparams.ckpt_path:
         raise ValueError("You need to provide a @ckpt_path for validation!")
     _refuse_unported(hparams)
+    from .device import resolve_device
+    device = resolve_device(hparams.device)
+    if hparams.num_gpus > 1 and "WORLD_SIZE" not in os.environ:
+        return _launch(argv, hparams, device)
+    device, mesh = _join_group(hparams, device)
+    out = _train(hparams, device, mesh, callback)
+    if mesh is not None:
+        import torch.distributed as dist
+        mesh.barrier()
+        dist.destroy_process_group()
+    return out
+
+
+def _train(hparams, device, mesh, callback):
+    """Train, save and validate on `device` (one rank of `mesh`, if
+    given)."""
+    main_rank = mesh is None or mesh.rank == 0
 
     from .datasets import dataset_dict, loader_kwargs
-    from .device import resolve_device
     from .training.ckpt import slim_ckpt
     from .training.losses import NeRFLossConfig
     from .training.metrics import (lpips as lpips_fn, psnr as psnr_fn,
                                    ssim as ssim_fn)
     from .training.trainer import NeRFTrainer, TrainConfig
 
-    device = resolve_device(hparams.device)
     dataset_cls = dataset_dict[hparams.dataset_name]
     kwargs = loader_kwargs(hparams, device)
     train_ds = dataset_cls(split=hparams.split, **kwargs)
@@ -99,7 +150,8 @@ def main(argv=None, callback=None) -> dict:
             loss_set=hparams.loss_func, grid_scale=hparams.scale,
             lambda_depth=hparams.depth_loss_w,
             lambda_distortion=hparams.distortion_loss_w))
-    trainer = NeRFTrainer(cfg, tc, train_ds, test_ds, seed=0, device=device)
+    trainer = NeRFTrainer(cfg, tc, train_ds, test_ds, seed=0, device=device,
+                          mesh=mesh)
 
     ckpt_dir = f"ckpts/{hparams.dataset_name}/{hparams.exp_name}"
     if hparams.ckpt_path:
@@ -110,22 +162,32 @@ def main(argv=None, callback=None) -> dict:
     if not hparams.val_only:
         log_dir = f"logs/{hparams.dataset_name}/{hparams.exp_name}"
         os.makedirs(log_dir, exist_ok=True)
-        with open(os.path.join(log_dir, "metrics.jsonl"), "a") as log:
+        log = open(os.path.join(log_dir, "metrics.jsonl"), "a") \
+            if main_rank else None
+        try:
             def log_cb(step, m):
                 if callback is not None:
                     callback(step, m, trainer)
-                if step % 100 < tc.update_interval:
+                if log is not None and step % 100 < tc.update_interval:
                     log.write(json.dumps(
                         {"step": int(step),
                          **{k: float(v) for k, v in m.items()}}) + "\n")
                     log.flush()
             trainer.fit(n_steps=max(tc.total_steps - trainer.step, 0),
                         log_every=1000, callback=log_cb)
-        os.makedirs(ckpt_dir, exist_ok=True)
+        finally:
+            if log is not None:
+                log.close()
         full_path = f"{ckpt_dir}/epoch={hparams.num_epochs - 1}.npz"
-        trainer.save(full_path)
-        slim_ckpt(full_path,
-                  f"{ckpt_dir}/epoch={hparams.num_epochs - 1}_slim.npz")
+        trainer.save(full_path)      # every rank: a sharded table gathers
+        if main_rank:
+            slim_ckpt(full_path,
+                      f"{ckpt_dir}/epoch={hparams.num_epochs - 1}_slim.npz")
+    trainer.unshard()
+    result = {"trainer": trainer, "psnr": [], "ssim": [], "lpips": [],
+              "ckpt_dir": ckpt_dir}
+    if not main_rank:
+        return result
 
     # validation over the whole test split (reference validation_step)
     val_dir = f"results/{hparams.dataset_name}/{hparams.exp_name}"
@@ -163,8 +225,8 @@ def main(argv=None, callback=None) -> dict:
             and "Synthetic" in hparams.root_dir:
         print("video export skipped (no mp4 backend: arnerf_tpu_torch "
               "writes no video)", flush=True)
-    return {"trainer": trainer, "psnr": psnrs, "ssim": ssims,
-            "lpips": [float(v) for v in lpipss], "ckpt_dir": ckpt_dir}
+    result.update(psnr=psnrs, ssim=ssims, lpips=[float(v) for v in lpipss])
+    return result
 
 
 if __name__ == "__main__":

@@ -11,12 +11,19 @@ Adam state (training/ckpt.py:37-44 of the JAX package): the step count,
 the first moments and the second moments in the parameters' sorted-key
 order (`tree_leaves`), then the schedule's count. Each package resumes
 from the other's checkpoint.
+
+A trainer whose hash table is row-sharded (parallel/tp.py) saves the full
+unpadded table and moments (`gather_unpadded`) and shards what it loads
+(`pad_and_shard`), so its checkpoints are an unsharded trainer's, in
+either package (the JAX trainer.py:966-1013).
 """
 
 import os
 
 import numpy as np
 import torch
+
+from ..parallel.tp import pad_tree, padded_rows, tree_map, unpad_tree
 
 
 def _numpy(t):
@@ -151,3 +158,20 @@ def slim_ckpt(path_in, path_out):
                                                  "grid/bitfield")}
     keep["step"] = blobs.get("step", np.asarray(0))
     np.savez(path_out, **keep)
+
+
+def gather_unpadded(tree, tp):
+    """Every table shard in `tree` (parameters, optimizer leaves) -> the
+    full unpadded table. A collective: every rank of the mesh calls it."""
+    gathered = tree_map(lambda leaf: tp.gather(leaf) if tp.is_shard(leaf)
+                        else leaf, tree)
+    return unpad_tree(gathered, tp.total_entries, tp.n_features, tp.n_mp)
+
+
+def pad_and_shard(tree, tp):
+    """Inverse of gather_unpadded: every full-table leaf of `tree` padded
+    to the mesh and cut to this rank's rows."""
+    padded = (padded_rows(tp.total_entries, tp.n_mp), tp.n_features)
+    return tree_map(lambda leaf: tp.shard(leaf)
+                    if tuple(getattr(leaf, "shape", ())) == padded else leaf,
+                    pad_tree(tree, tp.total_entries, tp.n_features, tp.n_mp))

@@ -25,9 +25,14 @@ at unit exposure; `optimize_ext` adds per-image pose deltas (`dR` axis-angle,
 builds the rays from the refined poses inside the autograd graph.
 
 Random draws come from torch generators (a device generator for ray
-indices and noise, a CPU generator for the stochastic-corner seeds), so a
-run does not repeat the JAX trainer's draws; the parity tests feed both
-packages the same draws through `train_step`'s explicit inputs.
+indices and noise, a CPU generator for the stochastic-corner seeds, and a
+device generator for the grid update's cells), so a run does not repeat
+the JAX trainer's draws; the parity tests feed both packages the same
+draws through `step_loss`'s explicit inputs.
+
+Multi-GPU training (`mesh`, parallel/): the JAX trainer's shard_map
+programs become one process per rank, joined by explicit collectives in
+each step (parallel/dp.py, parallel/tp.py).
 """
 
 import time
@@ -43,6 +48,8 @@ from ..models.ngp import (NGPConfig, grid_state_init, mark_invisible_cells,
                           update_density_grid)
 from ..rendering import (MAX_SAMPLES, draw_train_inputs, render_test,
                          render_train)
+from ..parallel.dp import join_step
+from ..parallel.tp import TABLE_KEY, TableSharding
 from . import ckpt as ckpt_lib
 from .losses import NeRFLossConfig, nerf_loss, total_loss
 from .metrics import psnr as psnr_fn
@@ -308,30 +315,40 @@ def step_loss(params, grid_state, rays_o, rays_d, rgb_gt, *, noise, seed,
 def train_step(params, opt: Adam, grid_state, images, poses, directions, *,
                cfg: NGPConfig, tc: TrainConfig, exp_step_factor: float,
                seg_cap: int, generator: torch.Generator,
-               host_generator: torch.Generator) -> dict:
+               host_generator: torch.Generator, mesh=None, tp=None) -> dict:
     """One training step; returns its metrics as device tensors (no sync).
     Under tc.optimize_ext the corners are exact: stochastic corners zero
-    the position gradient the pose deltas need (trainer.py:285)."""
+    the position gradient the pose deltas need (trainer.py:285). With
+    `mesh` the step is joined across ranks (finish_step); with `tp`
+    params hold this rank's table shard, expanded for the render."""
+    net = params if tp is None else tp.expand(params)
     with record_function("sample"):
         rays_o, rays_d, rgb_gt, exposure = sample_rays(
             images, poses, directions, tc, generator,
-            params["pose_deltas"] if tc.optimize_ext else None)
+            net["pose_deltas"] if tc.optimize_ext else None)
         noise, seed, rgb_bg = draw_train_inputs(
             rays_o.shape[0], rays_o.device, generator=generator,
             host_generator=host_generator,
             stoch=cfg.stoch_corners and not tc.optimize_ext,
             random_bg=tc.random_bg)
-    loss, results = step_loss(params, grid_state, rays_o, rays_d, rgb_gt,
+    loss, results = step_loss(net, grid_state, rays_o, rays_d, rgb_gt,
                               noise=noise, seed=seed, rgb_bg=rgb_bg, cfg=cfg,
                               tc=tc, exp_step_factor=exp_step_factor,
                               seg_cap=seg_cap, exposure=exposure)
+    return finish_step(params, opt, loss, results, rgb_gt, tc=tc, mesh=mesh,
+                       tp=tp)
+
+
+def finish_step(params, opt: Adam, loss, results, rgb_gt, *,
+                tc: TrainConfig, mesh=None, tp=None) -> dict:
+    """The gradient of `loss` for every leaf of `params`, joined across
+    `mesh`'s ranks (parallel/dp.py: the mean, as DDP's all-reduce) when
+    given, then the Adam step. Returns the step's metrics (joined)."""
+    leaves = ckpt_lib.tree_leaves(params)
     with record_function("backward"):
-        grads = torch.autograd.grad(loss, ckpt_lib.tree_leaves(params),
-                                    allow_unused=True)
-    with record_function("adam"):
-        opt.step(params, grads)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     B = tc.batch_size
-    return {
+    metrics = {
         "loss": loss.detach(),
         "psnr": psnr_fn(results["rgb"].detach(), rgb_gt),
         "rm_s": results["rm_samples"].float() / B,
@@ -339,20 +356,47 @@ def train_step(params, opt: Adam, grid_state, images, poses, directions, *,
         "nseg": results["max_nseg"].float(),
         "nseg_avg": results["total_nseg"].float() / B,
     }
+    if mesh is not None:
+        with record_function("join"):
+            grads, metrics = join_step(leaves, grads, metrics, mesh, tp)
+    with record_function("adam"):
+        opt.step(params, grads)
+    return metrics
 
 
 class NeRFTrainer:
-    """Owns the model, optimizer and grid state, and the training loop."""
+    """Owns the model, optimizer and grid state, and the training loop.
+
+    With `mesh` (parallel/mesh.py) every rank of the mesh runs one trainer:
+    each draws its own rays (`generator` and `host_generator` seeded per
+    rank), the grid update draws from `grid_generator`, seeded alike on
+    every rank, and each step is joined across the ranks (parallel/dp.py),
+    so parameters, Adam state and grid stay identical on every rank. On a
+    mesh with n_mp > 1 the hash table and its Adam moments are row-sharded
+    over the model group (parallel/tp.py); `shard_table` overrides that
+    choice (True shards on a 1 x 1 mesh too, which reaches the sharded
+    code on one card; JAX routes n_mp = 1 to data parallel). Only rank 0
+    logs and writes checkpoints."""
 
     def __init__(self, cfg: NGPConfig, tc: TrainConfig, dataset,
-                 test_dataset=None, seed: int = 0, device="cpu"):
+                 test_dataset=None, seed: int = 0, device="cpu", mesh=None,
+                 shard_table: bool = None):
         self.cfg, self.tc = cfg, tc
         self.device = torch.device(device)
         self.dataset, self.test_dataset = dataset, test_dataset
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else mesh.rank
+        if shard_table is None:
+            shard_table = mesh is not None and mesh.n_mp > 1
+        hc = cfg.hash_cfg
+        self.tp = TableSharding(mesh, hc.total_entries, hc.n_features) \
+            if shard_table else None
         self._initial_budget = tc.samples_per_ray_budget  # grow-back ceiling
         self.exp_step_factor = 1 / 256 if cfg.scale > 0.5 else 0.0
         self.params = ngp_init(cfg, torch.Generator().manual_seed(seed),
                                self.device)
+        if self.tp is not None:
+            self.params[TABLE_KEY] = self.tp.shard(self.params[TABLE_KEY])
         if tc.optimize_ext:
             n = len(dataset.poses)
             self.params["pose_deltas"] = {
@@ -365,9 +409,13 @@ class NeRFTrainer:
         self.step = 0
         # --val_batch_size bounds the rays of one render chunk
         self.val_chunk = min(1 << 16, max(4096, tc.val_batch_size // 16))
+        # rank 0 draws as a trainer without a mesh does
         self.generator = torch.Generator(device=self.device) \
-            .manual_seed(seed)
-        self.host_generator = torch.Generator().manual_seed(seed + 1)
+            .manual_seed(seed + 3 * self.rank)
+        self.host_generator = torch.Generator().manual_seed(
+            seed + 3 * self.rank + 1)
+        self.grid_generator = torch.Generator(device=self.device) \
+            .manual_seed(seed + 2)
         self.images = torch.as_tensor(dataset.rays, device=self.device)
         self.poses = torch.as_tensor(dataset.poses, device=self.device)
         self.directions = torch.as_tensor(dataset.directions,
@@ -386,11 +434,16 @@ class NeRFTrainer:
             self.grid_state, self.dataset.K, self.poses, self.cfg, w, h)
 
     def update_grid(self, warmup: bool):
+        """The density-grid update, from grid_generator (the same draws on
+        every rank, so the grid stays identical across a mesh)."""
+        net = model_params(self.params)
+        if self.tp is not None:
+            net[TABLE_KEY] = self.tp.gather(
+                net[TABLE_KEY])[:self.tp.total_entries]
         with record_function("grid_update"):
             self.grid_state = update_density_grid(
-                self.model_params, self.grid_state, self.cfg,
-                DENSITY_THRESHOLD,
-                warmup=warmup, generator=self.generator,
+                net, self.grid_state, self.cfg, DENSITY_THRESHOLD,
+                warmup=warmup, generator=self.grid_generator,
                 decay=self.tc.density_decay, erode=self.tc.erode)
 
     def _step(self, seg_cap: int) -> dict:
@@ -398,7 +451,8 @@ class NeRFTrainer:
             self.params, self.opt, self.grid_state, self.images, self.poses,
             self.directions, cfg=self.cfg, tc=self.tc,
             exp_step_factor=self.exp_step_factor, seg_cap=seg_cap,
-            generator=self.generator, host_generator=self.host_generator)
+            generator=self.generator, host_generator=self.host_generator,
+            mesh=self.mesh, tp=self.tp)
 
     def train_step(self) -> dict:
         """One step, with the grid update every update_interval steps.
@@ -413,8 +467,11 @@ class NeRFTrainer:
     def train_block(self) -> dict:
         """[grid update + update_interval steps]; the step must be
         block-aligned. Returns the last step's metrics, with nseg the
-        block's maximum."""
+        block's maximum. On a mesh, `block_collectives` then holds the
+        bytes the block's collectives moved (parallel/accounting.py)."""
         assert self.step % self.tc.update_interval == 0
+        if self.mesh is not None:
+            before = dict(self.mesh.collective_bytes)
         self._maybe_anneal_stoch()
         warmup = self.step < self.tc.warmup_steps
         self.update_grid(warmup)
@@ -425,7 +482,17 @@ class NeRFTrainer:
             nseg.append(metrics["nseg"])
         metrics["nseg"] = torch.stack(nseg).max()
         self.step += self.tc.update_interval
+        if self.mesh is not None:
+            self.block_collectives = {
+                k: v - before.get(k, 0)
+                for k, v in self.mesh.collective_bytes.items()
+                if v != before.get(k, 0)}
         return metrics
+
+    def _log(self, msg: str):
+        """Print on rank 0 only."""
+        if self.rank == 0:
+            print(msg, flush=True)
 
     # -- host policies between blocks (trainer.py:700-833) -------------------
 
@@ -443,16 +510,16 @@ class NeRFTrainer:
             if grow > budget:
                 self._set_tc(samples_per_ray_budget=grow)
                 self._shrink_votes = 0
-                print(f"sample budget {budget} -> {grow} "
-                      f"(demand {rm_s:.1f}/ray)", flush=True)
+                self._log(f"sample budget {budget} -> {grow} "
+                          f"(demand {rm_s:.1f}/ray)")
                 return True
         if fit <= budget - 8:
             self._shrink_votes += 1
             if self._shrink_votes >= patience:
                 self._set_tc(samples_per_ray_budget=fit)
                 self._shrink_votes = 0
-                print(f"sample budget {budget} -> {fit} "
-                      f"(demand {rm_s:.1f}/ray)", flush=True)
+                self._log(f"sample budget {budget} -> {fit} "
+                          f"(demand {rm_s:.1f}/ray)")
                 return True
         else:
             self._shrink_votes = 0
@@ -466,8 +533,8 @@ class NeRFTrainer:
         if self.step < self.tc.stoch_anneal_frac * self.tc.total_steps:
             return False
         self.cfg = replace(self.cfg, stoch_corners=False)
-        print(f"stoch corners -> exact at step {self.step} "
-              f"(anneal_frac {self.tc.stoch_anneal_frac})", flush=True)
+        self._log(f"stoch corners -> exact at step {self.step} "
+                  f"(anneal_frac {self.tc.stoch_anneal_frac})")
         return True
 
     @property
@@ -514,7 +581,7 @@ class NeRFTrainer:
     def _new_seg_cap(self, cap: int, new: int, nseg: float) -> bool:
         self._set_tc(seg_cap=new)
         self._segcap_votes = 0
-        print(f"seg cap {cap} -> {new}/ray (demand {nseg:.1f})", flush=True)
+        self._log(f"seg cap {cap} -> {new}/ray (demand {nseg:.1f})")
         return True
 
     def _set_tc(self, **changes):
@@ -549,10 +616,10 @@ class NeRFTrainer:
                 callback(self.step, last)
             if log_every and self.step % log_every < self.tc.update_interval:
                 m = {k: float(v) for k, v in last.items()}
-                print(f"step {self.step}: "
-                      + " ".join(f"{k}={v:.4g}" for k, v in m.items())
-                      + f" ({(self.step - start) / (time.time() - t0):.1f}"
-                      " it/s)", flush=True)
+                self._log(f"step {self.step}: "
+                          + " ".join(f"{k}={v:.4g}" for k, v in m.items())
+                          + f" ({(self.step - start) / (time.time() - t0):.1f}"
+                          " it/s)")
         return last
 
     # -- evaluation ----------------------------------------------------------
@@ -568,6 +635,11 @@ class NeRFTrainer:
 
     @property
     def model_params(self) -> dict:
+        """The network's parameters (no pose deltas), for renders. A sharded
+        table must be gathered first: unshard(), on every rank."""
+        if self.tp is not None:
+            raise RuntimeError("the hash table is sharded over the model "
+                               "group: call unshard() on every rank first")
         return model_params(self.params)
 
     def validate(self, max_images=None, compute_ssim=True, stride=1,
@@ -607,24 +679,64 @@ class NeRFTrainer:
 
     # -- checkpointing -------------------------------------------------------
 
+    def _checkpoint_state(self):
+        """(params, optimizer leaves) as a checkpoint holds them: with a
+        sharded table, gathered and unpadded (a collective)."""
+        params, opt_state = self.params, self.opt.state_leaves()
+        if self.tp is not None:
+            params, opt_state = ckpt_lib.gather_unpadded(
+                (params, opt_state), self.tp)
+        return params, opt_state
+
     def save(self, path):
-        ckpt_lib.save_ckpt(str(path), params=self.params,
-                           grid_state=self.grid_state,
-                           opt_state=self.opt.state_leaves(), step=self.step)
+        """Rank 0 writes the checkpoint. On a mesh every rank calls save
+        (a sharded table is gathered) and waits for the write."""
+        params, opt_state = self._checkpoint_state()
+        if self.rank == 0:
+            ckpt_lib.save_ckpt(str(path), params=params,
+                               grid_state=self.grid_state,
+                               opt_state=opt_state, step=self.step)
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def unshard(self):
+        """Gather the sharded table and its Adam moments on every rank (a
+        collective): the trainer then holds the full table, as a data
+        parallel trainer does, and can render."""
+        if self.tp is None:
+            return
+        params, opt_state = self._checkpoint_state()
+        self.tp = None
+        self.params[TABLE_KEY] = params[TABLE_KEY].clone().requires_grad_()
+        self.opt, self.lr_sched = make_optimizer(self.tc, self.params)
+        self.opt.load_state_leaves(opt_state)
+
+    def _full_template(self) -> dict:
+        """self.params with a sharded table replaced by a full-size one
+        (the shapes a checkpoint holds)."""
+        if self.tp is None:
+            return self.params
+        return {**self.params, TABLE_KEY: self.params[TABLE_KEY].new_zeros(
+            (self.tp.total_entries, self.tp.n_features))}
 
     def load_weights(self, path):
         """Params-only load (reference --weight_path, train.py:139)."""
-        params, _, _ = ckpt_lib.load_ckpt(path, params_template=self.params,
-                                          device=self.device)
+        params, _, _ = ckpt_lib.load_ckpt(
+            path, params_template=self._full_template(), device=self.device)
+        if self.tp is not None:
+            params = ckpt_lib.pad_and_shard(params, self.tp)
         self._set_params(params)
 
     def load(self, path):
         params, self.grid_state, self.step = ckpt_lib.load_ckpt(
-            path, params_template=self.params,
+            path, params_template=self._full_template(),
             grid_template=self.grid_state, device=self.device)
-        self._set_params(params)
         leaves = ckpt_lib.load_opt_state(path, self.opt.n_state_leaves,
                                          self.device)
+        if self.tp is not None:
+            params, leaves = ckpt_lib.pad_and_shard((params, leaves),
+                                                    self.tp)
+        self._set_params(params)
         if leaves is not None:
             self.opt.load_state_leaves(leaves)
 

@@ -420,8 +420,14 @@ def test_pfm_roundtrip_matches_jax(tmp_path):
 
 
 def test_registry_and_unported_datasets():
-    for name in ("synthetic", "nerf", "nsvf", "colmap", "nerfpp",
-                 "colmap_exr", "colmap_real_exr", "myblender"):
+    """Every dataset of the CLI's choices is ported (rtmv since it reads
+    prepare_rtmv's PNGs); an unknown name is refused."""
+    from arnerf_tpu_torch.opt import get_opts
+    names = ("synthetic", "nerf", "nsvf", "colmap", "nerfpp", "rtmv",
+             "colmap_exr", "colmap_real_exr", "myblender")
+    for name in names:
         assert t_datasets.unported_reason(name) is None
-    reason = t_datasets.unported_reason("rtmv")
-    assert "OpenEXR" in reason and "ROADMAP section 3" in reason
+        assert get_opts(["--dataset_name", name]).dataset_name == name
+    assert set(t_datasets.dataset_dict) == set(names)
+    reason = t_datasets.unported_reason("bogus")
+    assert "'bogus'" in reason and "no such dataset" in reason

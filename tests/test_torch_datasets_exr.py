@@ -183,8 +183,14 @@ def test_captures_hold_the_radiance_written(captures_root):
     assert float(half.max()) > 1.0
 
 
-def test_registry_holds_the_exr_loaders_and_refuses_rtmv():
+def test_registry_holds_the_exr_loaders_and_refuses_rtmv(tmp_path):
+    """rtmv is an LDR loader of the PNGs prepare_rtmv makes from a scene's
+    OpenEXR frames (as the JAX rtmv.py:49 reads images/*): a scene with
+    only its EXR frames is refused, naming the prep."""
     for name in ("colmap_exr", "colmap_real_exr", "myblender"):
         assert t_datasets.unported_reason(name) is None
-    reason = t_datasets.unported_reason("rtmv")
-    assert "rtmv.py:61" in reason and "LDR branch" in reason
+    assert "rtmv" not in t_datasets.EXR_DATASETS
+    root = str(tmp_path / "rtmv")
+    captures.write_rtmv_capture(root, n_frames=2, wh=(8, 8))
+    with pytest.raises(FileNotFoundError, match="prepare_rtmv"):
+        t_datasets.dataset_dict["rtmv"](root, split="train")

@@ -56,6 +56,15 @@ def test_port_file_list_is_complete():
     assert (REPO / "chip_smoke.py").exists()
 
 
+def test_port_file_list_holds_parallel_and_the_rtmv_prep():
+    """The multi-GPU package and the RTMV prep are checked as every other
+    module of the port (the parametrised tests below)."""
+    for name in ("__init__", "mesh", "dp", "tp", "accounting", "launch"):
+        assert f"arnerf_tpu_torch/parallel/{name}.py" in PORT_FILES
+    assert "arnerf_tpu_torch/prepare_rtmv.py" in PORT_FILES
+    assert "arnerf_tpu_torch/datasets/rtmv.py" in PORT_FILES
+
+
 @pytest.mark.parametrize("rel", PORT_FILES)
 def test_no_jax_or_reference_package_imports(rel):
     bad = [(line, mod) for line, mod in _imports(REPO / rel)

@@ -363,8 +363,13 @@ def test_insert_entry_point_refusals(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             t_main.main(SMALL_FLAGS)
-    with pytest.raises(NotImplementedError, match="not ported.*OpenEXR"):
-        t_main.main(["--dataset_name", "rtmv", "--device", "cpu"])
+    # rtmv is ported: its loader refuses a scene prepare_rtmv has not
+    # converted
+    from arnerf_tpu_torch.datasets.captures import write_rtmv_capture
+    write_rtmv_capture(str(tmp_path / "rtmv"), n_frames=2)
+    with pytest.raises(FileNotFoundError, match="prepare_rtmv"):
+        t_main.main(["--dataset_name", "rtmv", "--root_dir",
+                     str(tmp_path / "rtmv"), "--device", "cpu"])
 
 
 def test_decoders_read_the_viewer_bytes_as_the_jax_server():

@@ -190,10 +190,15 @@ def test_eval_refuses_cuda_without_a_card_and_unported_flags(tmp_path):
             mp.setenv("ARNERF_EVAL_BAKED", "1")
             with pytest.raises(RuntimeError, match="--device cpu"):
                 t_eval.main(args)
-    # the OpenEXR datasets are ported; rtmv is not
-    with pytest.raises(SystemExit, match="not ported.*OpenEXR"):
-        t_eval.main(["--dataset_name", "rtmv", "--device", "cpu",
-                     "--ckpt_path", "x.npz", "--mesh", "out.obj"])
+    # every dataset is ported: rtmv reaches its loader, which refuses a
+    # scene whose frames prepare_rtmv has not converted
+    from arnerf_tpu_torch.datasets.captures import write_rtmv_capture
+    root = str(tmp_path / "rtmv")
+    write_rtmv_capture(root, n_frames=2)
+    with pytest.raises(FileNotFoundError, match="prepare_rtmv"):
+        t_eval.main(["--dataset_name", "rtmv", "--root_dir", root,
+                     "--device", "cpu", "--ckpt_path", "x.npz", "--mesh",
+                     "out.obj"])
 
 
 @pytest.mark.parametrize("fast,with_im", [(True, False), (False, False),

@@ -275,13 +275,30 @@ def test_train_entry_point_needs_the_card_or_device_cpu(tmp_path):
 @pytest.mark.parametrize("flag", [["--num_gpus", "2"],
                                   ["--model_parallel", "2"],
                                   ["--dataset_name", "rtmv"]])
-def test_train_entry_point_refuses_unported_flags(flag):
-    """What train still refuses; the HDR flags and the EXR datasets run
-    (tests/test_torch_hdr_train.py)."""
+def test_train_entry_point_refuses_unported_flags(flag, tmp_path,
+                                                  monkeypatch):
+    """What train still refuses around the flags it once refused, which
+    now run (tests/test_torch_parallel.py, tests/test_torch_rtmv.py):
+    --num_gpus beyond the visible GPUs (no GPU here: the card is asked
+    for), --model_parallel that does not divide --num_gpus (JAX's
+    train.py:91-94 ValueError), rtmv on a scene that prepare_rtmv has not
+    converted."""
     from arnerf_tpu_torch import train as t_train
-    argv = ["--device", "cpu", "--dataset_name", "synthetic", *flag]
-    with pytest.raises(SystemExit, match="not ported"):
-        t_train.main(argv)
+    from arnerf_tpu_torch.datasets.captures import write_rtmv_capture
+    monkeypatch.chdir(tmp_path)
+    argv = ["--dataset_name", "synthetic", *flag]
+    if flag[0] == "--num_gpus":
+        with pytest.raises(RuntimeError,
+                           match=r"--device cpu|GPU\(s\) are visible"):
+            t_train.main(argv)
+    elif flag[0] == "--model_parallel":
+        with pytest.raises(ValueError, match="--num_gpus must be a "
+                                             "multiple of --model_parallel"):
+            t_train.main(["--device", "cpu", *argv])
+    else:
+        write_rtmv_capture("raw", n_frames=2)
+        with pytest.raises(FileNotFoundError, match="prepare_rtmv"):
+            t_train.main(["--device", "cpu", *argv, "--root_dir", "raw"])
 
 
 @pytest.mark.slow

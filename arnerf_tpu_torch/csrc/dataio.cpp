@@ -752,7 +752,7 @@ struct Jpeg {
 //   dst[nc]   (output channel of each, -1 to skip it),
 //   n_chunks x (first row, codec, payload offset, payload length),
 // codec 0: raw pixel data; 1: RLE; 2: inflated ZIP data, still predicted
-// and interleaved. A chunk's rows hold each channel's w values in turn
+// and interleaved; 3: PIZ (piz_decode). A chunk's rows hold each channel's w values in turn
 // (OpenEXR file layout, section "Scan Line Data"). RLE and ZIP data are
 // split into even and odd bytes and delta-coded (OpenEXR's
 // ImfRleCompressor.cpp and ImfZip.cpp); this undoes both.
@@ -761,6 +761,7 @@ enum {
   EXR_OK = 0,
   EXR_CORRUPT = 10,     // a chunk's data does not fill its rows exactly
   EXR_DESCRIPTOR = 11,  // inconsistent descriptor or output size
+  EXR_PIZ = 12,         // a PIZ chunk that does not decode
 };
 
 float half_to_float(uint16_t v) {
@@ -811,6 +812,257 @@ void exr_unpredict(uint8_t* tmp, int64_t n, uint8_t* out) {
   for (int64_t i = 0; i < n; i++) out[i] = (i & 1) ? *t2++ : *t1++;
 }
 
+// ---------------------------------------------------------------- PIZ ----
+//
+// OpenEXR's PIZ codec (the file format's description of ImfPizCompressor,
+// ImfHuf and ImfWav). A chunk of up to 32 scanlines holds:
+//   minNonZero, maxNonZero (u16 each) and the bitmap bytes between them:
+//     the set of 16-bit words the chunk uses (word 0 always counts);
+//   a length (i32) and that many bytes of Huffman-coded words.
+// The decoded words are channel-major: each channel's rows in turn, a
+// HALF value one word, a FLOAT or UINT value two (its little-endian low
+// word first). Every word position of a channel's values is its own
+// 2D wavelet plane; after the wavelet the words are indices into the
+// bitmap's sorted list of words. The scanline layout is then each row's
+// channels in turn, as the uncompressed chunk holds them.
+
+constexpr int HUF_ENCSIZE = (1 << 16) + 1;
+constexpr int HUF_FASTBITS = 14;
+
+// MSB-first reader over a bit stream of n_bits bits.
+struct HufBits {
+  const uint8_t* p;
+  int64_t n_bits;
+  int64_t pos = 0;
+  // The next k <= 58 bits (zeros past the end), not consumed.
+  uint64_t peek(int k) const {
+    unsigned __int128 v = 0;     // up to 7 + 58 bits
+    const int64_t byte = pos >> 3;
+    const int skip = (int)(pos & 7);
+    const int64_t n_bytes = (n_bits + 7) >> 3;
+    const int need = (skip + k + 7) >> 3;
+    for (int i = 0; i < need; i++)
+      v = (v << 8) | (byte + i < n_bytes ? p[byte + i] : 0);
+    return (uint64_t)(v >> (need * 8 - skip - k)) & ((1ull << k) - 1);
+  }
+};
+
+// hufUncompress: `in` of n bytes -> exactly n_raw words. Returns false on
+// any inconsistency.
+bool huf_decode(const uint8_t* in, int64_t n, uint16_t* out, int64_t n_raw) {
+  if (n == 0) return n_raw == 0;
+  if (n < 20) return false;
+  auto u32 = [&](int i) {
+    return (uint32_t)in[i] | ((uint32_t)in[i + 1] << 8) |
+           ((uint32_t)in[i + 2] << 16) | ((uint32_t)in[i + 3] << 24);
+  };
+  const uint32_t im = u32(0), iM = u32(4), n_bits = u32(12);
+  if (im >= (uint32_t)HUF_ENCSIZE || iM >= (uint32_t)HUF_ENCSIZE || im > iM)
+    return false;
+  // The code lengths of symbols im..iM, 6 bits each, with zero runs:
+  // 59..62 stand for 2..5 zeros, 63 then 8 bits for 6..261 zeros.
+  std::vector<uint8_t> len(HUF_ENCSIZE, 0);
+  HufBits table{in + 20, 8 * (n - 20)};
+  for (uint32_t s = im; s <= iM; s++) {
+    if (table.pos + 6 > table.n_bits) return false;
+    const int l = (int)table.peek(6);
+    table.pos += 6;
+    if (l < 59) {
+      len[s] = (uint8_t)l;
+      continue;
+    }
+    int64_t run = l - 59 + 2;
+    if (l == 63) {
+      if (table.pos + 8 > table.n_bits) return false;
+      run = (int64_t)table.peek(8) + 6;
+      table.pos += 8;
+    }
+    if (s + run > iM + 1) return false;
+    s += (uint32_t)run - 1;     // the lengths are already zero
+  }
+  const int64_t data_off = 20 + ((table.pos + 7) >> 3);
+  if (data_off + ((int64_t)n_bits + 7) / 8 > n) return false;
+  // Canonical codes, assigned from the longest length down: the codes of
+  // length l are first[l], first[l] + 1, ... in increasing symbol order.
+  int64_t count[59] = {0}, first[59] = {0};
+  for (int s = 0; s < HUF_ENCSIZE; s++) count[len[s]]++;
+  int64_t c = 0;
+  for (int l = 58; l > 0; l--) {
+    first[l] = c;
+    c = (c + count[l]) >> 1;
+  }
+  std::vector<std::vector<uint32_t>> by_len(59);
+  for (int s = 0; s < HUF_ENCSIZE; s++)
+    if (len[s]) by_len[len[s]].push_back((uint32_t)s);
+  // Codes of up to HUF_FASTBITS bits from one table lookup, the longer
+  // ones (up to 58 bits) by their lengths' ranges.
+  std::vector<uint32_t> fast(1 << HUF_FASTBITS, 0);   // sym << 6 | len
+  for (int l = 1; l <= HUF_FASTBITS; l++)
+    for (size_t r = 0; r < by_len[l].size(); r++) {
+      const uint64_t code = (uint64_t)first[l] + r;
+      if (code >> l) return false;               // over-full code
+      const uint64_t lo = code << (HUF_FASTBITS - l);
+      const uint64_t hi = (code + 1) << (HUF_FASTBITS - l);
+      for (uint64_t i = lo; i < hi; i++) fast[i] = (by_len[l][r] << 6) | l;
+    }
+  HufBits bits{in + data_off, (int64_t)n_bits};
+  int64_t o = 0;
+  while (bits.pos < bits.n_bits) {
+    const uint32_t e = fast[bits.peek(HUF_FASTBITS)];
+    int l = (int)(e & 63);
+    uint32_t sym = e >> 6;
+    if (!l) {
+      for (l = HUF_FASTBITS + 1; l <= 58; l++) {
+        const uint64_t code = bits.peek(l);
+        if (code >= (uint64_t)first[l] &&
+            code - first[l] < by_len[l].size()) {
+          sym = by_len[l][code - first[l]];
+          break;
+        }
+      }
+      if (l > 58) return false;
+    }
+    if (bits.pos + l > bits.n_bits) return false;
+    bits.pos += l;
+    if (sym == iM) {           // run: 8 more bits repeat the last word
+      if (bits.pos + 8 > bits.n_bits || o == 0) return false;
+      const int64_t run = (int64_t)bits.peek(8);
+      bits.pos += 8;
+      if (o + run > n_raw) return false;
+      for (int64_t i = 0; i < run; i++, o++) out[o] = out[o - 1];
+    } else {
+      if (o >= n_raw) return false;
+      out[o++] = (uint16_t)sym;
+    }
+  }
+  return o == n_raw;
+}
+
+inline void wdec14(uint16_t l, uint16_t h, uint16_t& a, uint16_t& b) {
+  const int16_t ls = (int16_t)l, hs = (int16_t)h;
+  const int hi = hs;
+  const int ai = ls + (hi & 1) + (hi >> 1);
+  a = (uint16_t)(int16_t)ai;
+  b = (uint16_t)(int16_t)(ai - hi);
+}
+
+inline void wdec16(uint16_t l, uint16_t h, uint16_t& a, uint16_t& b) {
+  const int m = l, d = h;
+  const int bb = (m - (d >> 1)) & 0xffff;
+  const int aa = (d + bb - 0x8000) & 0xffff;
+  b = (uint16_t)bb;
+  a = (uint16_t)aa;
+}
+
+// wav2Decode: undo the 2D Haar-like wavelet of an nx x ny plane whose
+// elements sit ox words apart in x and oy words apart in y; the 14-bit
+// lifting when every word is below 2^14 (mx), else the 16-bit modular one.
+void wav2_decode(uint16_t* in, int64_t nx, int64_t ox, int64_t ny, int64_t oy,
+                 uint16_t mx) {
+  const bool w14 = mx < (1 << 14);
+  auto dec = [w14](uint16_t l, uint16_t h, uint16_t& a, uint16_t& b) {
+    if (w14)
+      wdec14(l, h, a, b);
+    else
+      wdec16(l, h, a, b);
+  };
+  const int64_t n = std::min(nx, ny);
+  int64_t p = 1;
+  while (p <= n) p <<= 1;
+  p >>= 1;
+  int64_t p2 = p;
+  p >>= 1;
+  while (p >= 1) {
+    const int64_t oy1 = oy * p, oy2 = oy * p2, ox1 = ox * p, ox2 = ox * p2;
+    const int64_t ey = oy * (ny - p2);
+    int64_t py = 0;
+    uint16_t i00, i01, i10, i11;
+    for (; py <= ey; py += oy2) {
+      int64_t px = py;
+      const int64_t ex = py + ox * (nx - p2);
+      for (; px <= ex; px += ox2) {
+        uint16_t* a = in + px;
+        uint16_t* b = in + px + ox1;
+        uint16_t* c = in + px + oy1;
+        uint16_t* d = in + px + oy1 + ox1;
+        dec(*a, *c, i00, i10);
+        dec(*b, *d, i01, i11);
+        dec(i00, i01, *a, *b);
+        dec(i10, i11, *c, *d);
+      }
+      if (nx & p) {            // the odd column
+        uint16_t* c = in + px + oy1;
+        dec(in[px], *c, i00, *c);
+        in[px] = i00;
+      }
+    }
+    if (ny & p) {              // the odd row
+      int64_t px = py;
+      const int64_t ex = py + ox * (nx - p2);
+      for (; px <= ex; px += ox2) {
+        uint16_t* b = in + px + ox1;
+        dec(in[px], *b, i00, *b);
+        in[px] = i00;
+      }
+    }
+    p2 = p;
+    p >>= 1;
+  }
+}
+
+// One PIZ chunk of `rows` scanlines of w pixels -> its uncompressed
+// scanline bytes (`out`, rows * row_bytes). words[c]: 1 for HALF, 2 for
+// FLOAT and UINT.
+bool piz_decode(const uint8_t* in, int64_t n, const int64_t* types,
+                int64_t nc, int64_t w, int64_t rows, uint8_t* out) {
+  int64_t total = 0;
+  for (int64_t c = 0; c < nc; c++) total += w * rows * (types[c] == 1 ? 1 : 2);
+  if (n < 4) return false;
+  const int min_nz = in[0] | (in[1] << 8), max_nz = in[2] | (in[3] << 8);
+  if (max_nz >= 8192) return false;
+  uint8_t bitmap[8192] = {0};
+  int64_t pos = 4;
+  if (min_nz <= max_nz) {
+    if (pos + max_nz - min_nz + 1 > n) return false;
+    memcpy(bitmap + min_nz, in + pos, max_nz - min_nz + 1);
+    pos += max_nz - min_nz + 1;
+  }
+  // The reverse LUT: 0, then every word whose bit is set, in order.
+  std::vector<uint16_t> lut(1 << 16, 0);
+  int k = 0;
+  for (int i = 0; i < (1 << 16); i++)
+    if (i == 0 || (bitmap[i >> 3] & (1 << (i & 7)))) lut[k++] = (uint16_t)i;
+  const uint16_t max_value = (uint16_t)(k - 1);
+  if (pos + 4 > n) return false;
+  int32_t length;
+  memcpy(&length, in + pos, 4);
+  pos += 4;
+  if (length < 0 || pos + length > n) return false;
+  std::vector<uint16_t> buf(total);
+  if (!huf_decode(in + pos, length, buf.data(), total)) return false;
+  int64_t start = 0;
+  std::vector<int64_t> starts(nc);
+  for (int64_t c = 0; c < nc; c++) {
+    const int64_t size = types[c] == 1 ? 1 : 2;
+    starts[c] = start;
+    for (int64_t j = 0; j < size; j++)
+      wav2_decode(buf.data() + start + j, w, size, rows, w * size, max_value);
+    start += w * rows * size;
+  }
+  for (auto& v : buf) v = lut[v];
+  uint8_t* o = out;
+  for (int64_t r = 0; r < rows; r++)
+    for (int64_t c = 0; c < nc; c++) {
+      const int64_t words = w * (types[c] == 1 ? 1 : 2);
+      const uint16_t* src = buf.data() + starts[c] + r * words;
+      for (int64_t i = 0; i < words; i++) {
+        *o++ = (uint8_t)(src[i] & 0xff);
+        *o++ = (uint8_t)(src[i] >> 8);
+      }
+    }
+  return true;
+}
+
 int exr_decode(const uint8_t* data, int64_t n, float* out, int64_t out_len) {
   const int64_t* d = (const int64_t*)data;
   if (n < 6 * 8) return EXR_DESCRIPTOR;
@@ -839,10 +1091,15 @@ int exr_decode(const uint8_t* data, int64_t n, float* out, int64_t out_len) {
     const uint8_t* src = data + off;
     if (codec == 0 || codec == 2) {
       if (len != size) return EXR_CORRUPT;
-    } else if (codec != 1) {
+    } else if (codec != 1 && codec != 3) {
       return EXR_DESCRIPTOR;
     }
-    if (codec != 0) {
+    if (codec == 3) {
+      raw.resize(size);
+      if (!piz_decode(src, len, types, nc, w, rows, raw.data()))
+        return EXR_PIZ;
+      src = raw.data();
+    } else if (codec != 0) {
       tmp.resize(size);
       raw.resize(size);
       if (codec == 1) {

@@ -9,16 +9,17 @@ for the file: 16-bit RGB(A) reduced to its high bytes, 16-bit gray+alpha as
 8-bit RGBA, 1-bit gray as bool, 2- and 4-bit gray scaled to 0-255, palette
 images as RGB, `tRNS`, gamma and EXIF orientation ignored. And OpenEXR:
 single-part scanline files with R, G, B (and A) channels of type HALF or
-FLOAT, compressed with NONE, RLE, ZIPS or ZIP, in either line order and
-with any data window, read as float32 (H, W, 3|4) in RGB(A) order, the
+FLOAT, compressed with NONE, RLE, ZIPS, ZIP or PIZ, in either line order
+and with any data window, read as float32 (H, W, 3|4) in RGB(A) order, the
 values of the file's data window. The PNG and ZIP streams are inflated by
 Python's zlib; the unfilter, the JPEG decoder and the EXR chunk decoding
-(RLE, the byte predictor, HALF to float) are the port's native code
-(csrc/dataio.cpp, built at first use), which runs many files on a pool of
-threads without the GIL. Adam7-interlaced PNGs, progressive, lossless,
-arithmetic-coded or CMYK JPEGs, and tiled, multi-part or deep OpenEXR
-files, other EXR compressions (PIZ, PXR24, B44(A), DWAA/B) and EXR files
-without R, G and B raise, naming the file and what it found.
+(RLE, the byte predictor, PIZ's Huffman code and wavelet, HALF to float)
+are the port's native code (csrc/dataio.cpp, built at first use), which
+runs many files on a pool of threads without the GIL. Adam7-interlaced
+PNGs, progressive, lossless, arithmetic-coded or CMYK JPEGs, and tiled,
+multi-part or deep OpenEXR files, other EXR compressions (PXR24, B44(A),
+DWAA/B) and EXR files without R, G and B raise, naming the file and what
+it found; so does a chunk that does not decode.
 """
 
 import ctypes
@@ -104,11 +105,13 @@ EXR_MAGIC = b"\x76\x2f\x31\x01"
 # those the port reads
 EXR_CODECS = ("NONE", "RLE", "ZIPS", "ZIP", "PIZ", "PXR24", "B44", "B44A",
               "DWAA", "DWAB")
-_EXR_LINES = {0: 1, 1: 1, 2: 1, 3: 16}
+_EXR_LINES = {0: 1, 1: 1, 2: 1, 3: 16, 4: 32}
 _EXR_TYPES = {0: "UINT", 1: "HALF", 2: "FLOAT"}
 _EXR_ERRORS = {10: "corrupt OpenEXR chunk (its data does not fill its "
                    "scanlines)",
-               11: "inconsistent OpenEXR chunk layout"}
+               11: "inconsistent OpenEXR chunk layout",
+               12: "corrupt OpenEXR PIZ chunk (its bitmap, Huffman code or "
+                   "wavelet data do not decode to its scanlines)"}
 
 
 def _exr_predict(raw: bytes) -> bytes:
@@ -320,7 +323,7 @@ def _parse_exr(path, buf):
     if comp not in _EXR_LINES:
         found = EXR_CODECS[comp] if comp < len(EXR_CODECS) else comp
         raise ValueError(f"{path}: OpenEXR {found} compression is not "
-                         f"supported, only NONE, RLE, ZIPS and ZIP")
+                         f"supported, only NONE, RLE, ZIPS, ZIP and PIZ")
     chlist, p, channels = attrs["channels"], 0, []
     while p < len(chlist) and chlist[p] != 0:
         name, p = _cstring(chlist, p, path)
@@ -351,7 +354,8 @@ def _parse_exr(path, buf):
 
 def _prepare_exr(path):
     """Read one OpenEXR file and make its decoder job: the descriptor of
-    csrc/dataio.cpp's exr_decode, then the chunks (ZIP: inflated here)."""
+    csrc/dataio.cpp's exr_decode, then the chunks (ZIP: inflated here; PIZ
+    as stored, decoded natively)."""
     with open(path, "rb") as f:
         buf = f.read()
     info = _parse_exr(path, buf)
@@ -378,8 +382,8 @@ def _prepare_exr(path):
         raw_size = min(lines, h - row0) * row_bytes
         if comp == 0 or size == raw_size:     # stored raw
             codec = 0
-        elif comp == 1:
-            codec = 1
+        elif comp in (1, 4):          # RLE, PIZ: decoded natively
+            codec = 1 if comp == 1 else 3
         else:
             codec = 2
             try:

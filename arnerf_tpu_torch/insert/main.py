@@ -40,9 +40,11 @@ A frame's stages run under `torch.profiler.record_function` spans:
 "probe" and "sg_fit" (action 1), "shade", "rect" and "shadow" (action 6);
 the renders inside them open the render layers' spans.
 
-Not ported: the amortised SG fitter (EnvTrainer, generate_envmaps,
-load_or_train_envmaps), which nothing in the JAX package calls. The scene
-is any dataset the port loads, with --root_dir.
+The amortised SG fitter: `generate_envmaps` renders env maps at random
+surface points into gen_path/envmaps.npy (the JAX file name, so either
+package reads the other's maps) and `load_or_train_envmaps` trains
+envfit.EnvTrainer on them (upstream leaves it off; nothing calls it in a
+serving run). The scene is any dataset the port loads, with --root_dir.
 """
 
 import glob
@@ -60,7 +62,7 @@ from ..image_io import write_exr, write_png
 from ..ops import threefry
 from ..rendering import render_surface_normal, render_test
 from ..rendering_baked import bake_ngp, bucket_renderer, render_baked
-from .envfit import EnvOptim, sg2envmap, trans_raw_sg
+from .envfit import EnvOptim, EnvTrainer, sg2envmap, trans_raw_sg
 from .global_light import GlobalLightEstimator
 from .insert_models import (get_embedder, mlp_skip_apply, mlp_skip_init,
                             train_global_env_prec)
@@ -401,6 +403,30 @@ class NGPInsertor:
         np.save(os.path.join(self.gen_path, "btrans.npy"), binfo,
                 allow_pickle=True)
         self.has_pc = True
+
+    def generate_envmaps(self, env_num=512):
+        """Env maps (128x128 lat-long) at `env_num` random surface points
+        for the amortised SG fitter, saved as gen_path/envmaps.npy; each is
+        generate_probe(pt, return_envmap=True), a network render (on a
+        baked insertor `_probe_render`) (reference main.py:195-212)."""
+        res_path = os.path.join(self.gen_path, "envmaps.npy")
+        if os.path.exists(res_path):
+            return
+        self.generate_surface(save=True)
+        spts = self.spts.reshape(-1, 3)
+        idx = np.random.default_rng(0).permutation(spts.shape[0])[:env_num]
+        envmaps = [self.generate_probe(pt, return_envmap=True)
+                   for pt in spts[idx]]
+        np.save(res_path, np.stack(envmaps, 0))
+
+    def load_or_train_envmaps(self, epochs=200):
+        """The amortised SG fitter trained on the scene's env maps
+        (reference main.py:215-218); returns the EnvTrainer."""
+        self.generate_envmaps()
+        envmaps = np.load(os.path.join(self.gen_path, "envmaps.npy"))
+        self.env_model = EnvTrainer(envmaps, device=self.device)
+        self.env_model.train(epochs)
+        return self.env_model
 
     def train_global_sh_light(self):
         """reference main.py:251-302."""

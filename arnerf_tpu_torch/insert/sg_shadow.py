@@ -7,6 +7,7 @@ build/arnerf_tpu_torch/ at the root of the checkout, never in the package.
 """
 
 import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -47,15 +48,23 @@ def compute_fh_table(theta_num=1024, lbd_num=2048, zeta_num=256):
 FH_CACHE = BUILD_DIR / "fh_pretab.npy"
 
 
+def write_fh_table(tab, path=FH_CACHE):
+    """Save an F table to `path` atomically (a temporary file, then a
+    rename), so that a reader never sees a partial table."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".tmp{os.getpid()}.npy")
+    np.save(tmp, tab)
+    os.replace(tmp, path)
+
+
 def get_fh_table():
-    """The full-size F table, computed once and cached (atomic write)."""
+    """The full-size F table, computed once and cached (atomic write;
+    `python -m arnerf_tpu_torch.insert.pretabulate_fh` writes it ahead)."""
     if FH_CACHE.exists():
         return np.load(FH_CACHE)
     tab = compute_fh_table()
-    FH_CACHE.parent.mkdir(parents=True, exist_ok=True)
-    tmp = FH_CACHE.with_suffix(f".tmp{os.getpid()}.npy")
-    np.save(tmp, tab)
-    os.replace(tmp, FH_CACHE)
+    write_fh_table(tab)
     return tab
 
 

@@ -12,6 +12,14 @@ The depth maps are coloured with OpenCV's turbo map, as the JAX CLI's are
 `test/lpips_rand=` (or `test/lpips_vgg=` with the official weights) to the
 test line (training/lpips.py).
 
+ARNERF_AUTO_RESUME=1 keeps a crash-durable snapshot of the run at
+ckpts/{dataset}/{exp}/snapshot.npz (written at the start and every 25
+blocks, and when training raises) and, on a start without --ckpt_path or
+--weight_path, resumes from it (`auto-resume: snapshot at step N`); the
+file is removed when the run completes. The metrics go to
+logs/{dataset}/{exp}/metrics.jsonl and, where torch.utils.tensorboard
+imports, as TensorBoard events beside it (utils/profiling.MetricsLogger).
+
 Runs on the card by default, with the fused field-head kernel, bf16 field
 evaluation and stochastic corners (train.py:64-75); --device cpu runs the
 plain versions in float32 with exact corners. The datasets are synthetic,
@@ -22,13 +30,13 @@ the exposures a dataset carries (colmap's HDR-NeRF layouts) with the
 unit-exposure anchor at the dataset's unit_exposure_rgb; --use_EXR trains
 raw HDR radiance (rgb_act None, leaky ReLU) on the EXR datasets, usually
 with --loss_func log; --optimize_ext refines every training pose. The
-test views are clipped to [0, 1] before PSNR. Refused: --num_gpus > 1,
---model_parallel > 1 and rtmv (see datasets/__init__.py). Synthetic-NSVF
+test views are clipped to [0, 1] before PSNR. --num_gpus N trains on N
+ranks (data parallel; --model_parallel shards the hash table over
+groups of ranks; parallel/). Synthetic-NSVF
 runs end with the JAX CLI's no-mp4-backend message: the port writes no
 video.
 """
 
-import json
 import os
 import sys
 
@@ -37,6 +45,7 @@ import torch
 
 from .image_io import write_png
 from .opt import get_opts, model_config
+from .utils.profiling import MetricsLogger
 
 
 def _refuse_unported(hparams):
@@ -81,6 +90,26 @@ def _join_group(hparams, device):
     mesh = make_mesh_2d(world // n_mp, n_mp) if n_mp > 1 \
         else make_mesh(world)
     return rank_device, mesh
+
+
+def _auto_resume(hparams, trainer, ckpt_dir, main_rank):
+    """ARNERF_AUTO_RESUME=1 (the JAX CLI's, train.py:115-145): keep a
+    crash-durable snapshot at ckpts/{dataset}/{exp}/snapshot.npz and, when
+    one is there and neither --ckpt_path nor --weight_path is given, resume
+    from it (every rank loads it), reseeding the draws from its step.
+    Returns the snapshot path, or None. (The JAX CLI resumes over
+    --weight_path too, replacing the weights it loaded.)"""
+    if not os.environ.get("ARNERF_AUTO_RESUME"):
+        return None
+    snap_path = f"{ckpt_dir}/snapshot.npz"
+    if not hparams.ckpt_path and not hparams.weight_path \
+            and os.path.exists(snap_path):
+        trainer.load(snap_path)
+        trainer.reseed(trainer.step)
+        if main_rank:
+            print(f"auto-resume: snapshot at step {trainer.step}",
+                  flush=True)
+    return snap_path
 
 
 def depth2img(depth):
@@ -160,29 +189,29 @@ def _train(hparams, device, mesh, callback):
         trainer.load_weights(hparams.weight_path)
 
     if not hparams.val_only:
-        log_dir = f"logs/{hparams.dataset_name}/{hparams.exp_name}"
-        os.makedirs(log_dir, exist_ok=True)
-        log = open(os.path.join(log_dir, "metrics.jsonl"), "a") \
+        snap_path = _auto_resume(hparams, trainer, ckpt_dir, main_rank)
+        logger = MetricsLogger(
+            f"logs/{hparams.dataset_name}/{hparams.exp_name}") \
             if main_rank else None
         try:
             def log_cb(step, m):
                 if callback is not None:
                     callback(step, m, trainer)
-                if log is not None and step % 100 < tc.update_interval:
-                    log.write(json.dumps(
-                        {"step": int(step),
-                         **{k: float(v) for k, v in m.items()}}) + "\n")
-                    log.flush()
+                if logger is not None and step % 100 < tc.update_interval:
+                    logger.log(step, m)
             trainer.fit(n_steps=max(tc.total_steps - trainer.step, 0),
-                        log_every=1000, callback=log_cb)
+                        log_every=1000, callback=log_cb,
+                        disk_snapshot=snap_path)
         finally:
-            if log is not None:
-                log.close()
+            if logger is not None:
+                logger.close()
         full_path = f"{ckpt_dir}/epoch={hparams.num_epochs - 1}.npz"
         trainer.save(full_path)      # every rank: a sharded table gathers
         if main_rank:
             slim_ckpt(full_path,
                       f"{ckpt_dir}/epoch={hparams.num_epochs - 1}_slim.npz")
+            if snap_path and os.path.exists(snap_path):
+                os.remove(snap_path)  # done: a later run must not resume
     trainer.unshard()
     result = {"trainer": trainer, "psnr": [], "ssim": [], "lpips": [],
               "ckpt_dir": ckpt_dir}

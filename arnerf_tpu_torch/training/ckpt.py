@@ -16,6 +16,9 @@ A trainer whose hash table is row-sharded (parallel/tp.py) saves the full
 unpadded table and moments (`gather_unpadded`) and shards what it loads
 (`pad_and_shard`), so its checkpoints are an unsharded trainer's, in
 either package (the JAX trainer.py:966-1013).
+
+The JAX package's .orbax checkpoints (orbax is a JAX library) are refused
+by name on load and on save.
 """
 
 import os
@@ -81,8 +84,16 @@ def tree_leaves(tree) -> list:
     return [] if tree is None else [tree]
 
 
+def _refuse_orbax(path):
+    if str(path).rstrip("/").endswith(".orbax"):
+        raise ValueError(f"{path}: orbax checkpoints (the JAX package's "
+                         f"save_ckpt_orbax) are a JAX format; the port "
+                         f"reads and writes the .npz layout only")
+
+
 def save_ckpt(path, *, params, grid_state=None, opt_state=None, step=0):
     """opt_state: the optimizer's leaves (see the module note), or None."""
+    _refuse_orbax(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     blobs = {"step": np.asarray(step)}
     blobs.update(_flatten(params, "params/"))
@@ -103,6 +114,7 @@ def load_ckpt(path, *, params_template=None, grid_template=None,
     """Load a checkpoint. Returns (params, grid_state, step). Parameters
     missing from the file keep the template's values; grid fields missing
     from the file keep `grid_template`'s (so slim checkpoints load)."""
+    _refuse_orbax(path)
     with np.load(path, allow_pickle=False) as f:
         blobs = dict(f)
     params = params_from_jax(blobs, device)

@@ -47,6 +47,14 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  `--num_gpus 2` must fail, naming the one visible GPU.
                  Prints ms/step beside the unjoined trainer's and the
                  collective bytes per block.
+  tools    - `python -m arnerf_tpu_torch.insert.pretabulate_fh`'s main
+                 writes the SG F table (its seconds printed); the insert
+                 phase's first SSDF load must then read it, not compute it
+                 (counted, checked by envfit). Then
+                 `arnerf_tpu_torch.insert.train_brdf` for 300 steps on the
+                 card into the work directory (batch 512 x 4096 sphere
+                 directions from the device threefry): the loss must fall;
+                 ms/step printed.
   insert   - the AR insertion server's path at 800x800 from the train
                  phase's checkpoint: NGPInsertor, the surface cache and
                  point cloud over the 24 training poses, plane RANSAC, the
@@ -68,6 +76,28 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  RENDER_FLIP_PIXELS pixels, an SG (self shadow, SSDF) frame
                  likewise off the object and its shadow, and to 5e-3, as
                  the network SG frame, under them.
+  envfit   - the amortised SG fitter on the insert phase's network
+                 insertor: generate_envmaps at its default 512 maps (a
+                 cubemap probe through the network field per map: the fused
+                 head must launch in every probe, the segment sum never;
+                 s per probe printed), then EnvTrainer at full width (32
+                 SGs, 128x128 maps, batch 16, full f32) for 100 epochs with
+                 checkpoints every 50 and a second train() that must resume
+                 at epoch 100 and go on to 200; the loss on 16 maps must
+                 fall; ms per step and eval ms printed; one step from the
+                 default weights on four batches (noise, SG renders, those
+                 at 8 bits, the generated maps), on the CPU and on the card,
+                 each held against float64 on the CPU given its own pool and
+                 ReLU decisions (envfit_precision: the loss to 1e-5, each
+                 gradient leaf to ENVFIT_GRAD_TOL relative, Frobenius), and
+                 the same step with TF32 allowed must fail that tolerance.
+  resume   - ARNERF_AUTO_RESUME=1: the train entry point at the train
+                 phase's configuration for 600 steps in a subprocess
+                 (chip_smoke.py --resume-worker), SIGKILLed once its
+                 snapshot holds step 400; rerun, it must print the resume
+                 at 400, finish at 600, remove the snapshot, keep finite
+                 parameters and launch both kernels, its first block's
+                 loss within 2x the killed run's last logged loss.
   real_updates - the segment sum in both modes on the updates of one real
                  post-warmup training step of the trained model (captured
                  from the hash-grid backward), against its plain version,
@@ -117,9 +147,11 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  when its rays move by 1e-7 (step_card_vs_cpu).
   hdr      - the HDR path. Every OpenEXR fixture of tests/data/exr/
                  through the port's reader: the supported ones (NONE,
-                 RLE, ZIPS, ZIP; HALF and FLOAT; RGB and RGBA; an offset
-                 data window, decreasing line order) equal to the values
-                 written (expected.npy), the others refused. Then a
+                 RLE, ZIPS, ZIP, PIZ; HALF and FLOAT; RGB and RGBA; an
+                 offset data window, decreasing line order; PIZ's short
+                 last block, raw block and 16-bit wavelet) equal to the
+                 values written, the others refused; the PIZ decode rate
+                 printed. Then a
                  colmap_exr capture (64 HALF ZIP views at 800x600, HDR
                  radiance up to ~3.8 over a background of 1) trained with
                  `--use_EXR --loss_func log` for 1,000 steps at the
@@ -2156,12 +2188,15 @@ def captures_phase(state, dev):
 
 def exr_fixture_check():
     """Every fixture of tests/data/exr/ through the port's OpenEXR reader:
-    the supported ones must hold expected.npy's values exactly (FLOAT
-    channels the generator's values, HALF channels those rounded to
-    HALF), the unsupported ones must raise."""
+    the supported ones must hold their values exactly (expected.npy,
+    expected_piz.npy for the PIZ files, or a .npy of the file's own name:
+    FLOAT channels the generator's values, HALF channels those rounded to
+    HALF), the unsupported ones must raise. Prints the PIZ files' decode
+    rate (float32 output bytes per second, each file read 20 times)."""
     import numpy as np
     from arnerf_tpu_torch.image_io import read_exr
-    expected = np.load(EXR_FIXTURES / "expected.npy")
+    expected = {"": np.load(EXR_FIXTURES / "expected.npy"),
+                "piz": np.load(EXR_FIXTURES / "expected_piz.npy")}
     worst, read, refused = 0.0, [], []
     for path in sorted(EXR_FIXTURES.glob("*.exr")):
         if path.name.startswith("unsupported_"):
@@ -2171,22 +2206,34 @@ def exr_fixture_check():
                 refused.append(str(e).split(": ", 1)[1][:40])
                 continue
             raise AssertionError(f"{path.name}: read, but must be refused")
-        kind, chans = path.stem.split("_")[1:3]
-        want = (np.concatenate([expected[1][..., :2], expected[0][..., 2:]],
-                               -1) if kind == "mixed"
-                else expected[0 if kind == "float" else 1])
-        want = want if "rgba" in chans else want[..., :3]
+        own = path.with_suffix(".npy")
+        codec, kind, chans = path.stem.split("_")[:3]
+        values = expected["piz" if codec == "piz" else ""]
+        if own.exists():
+            want = np.load(own)
+        else:
+            want = (np.concatenate([values[1][..., :2], values[0][..., 2:]],
+                                   -1) if kind == "mixed"
+                    else values[0 if kind == "float" else 1])
+            want = want if "rgba" in chans else want[..., :3]
         img = read_exr(str(path))
         if img.shape != want.shape:
             raise AssertionError(f"{path.name}: shape {img.shape}, expected "
                                  f"{want.shape}")
         worst = max(worst, float(np.abs(img - want).max()))
         read.append(path.name)
-    print(f"hdr: {len(read)} EXR fixtures decoded, max abs error {worst}; "
-          f"{len(refused)} refused: {refused}", flush=True)
-    if worst != 0.0 or len(read) < 19 or len(refused) < 11:
+    piz = sorted(str(p) for p in EXR_FIXTURES.glob("piz_*.exr"))
+    t0 = time.perf_counter()
+    nbytes = sum(read_exr(p).nbytes for _ in range(20) for p in piz)
+    rate = nbytes / (time.perf_counter() - t0) / 1e6
+    print(f"hdr: {len(read)} EXR fixtures decoded ({len(piz)} PIZ), max abs "
+          f"error {worst}; {len(refused)} refused: {refused}; PIZ fixtures "
+          f"decode at {rate:.1f} MB/s of float32 output (one thread, "
+          f"files of 2-20 KB)", flush=True)
+    if worst != 0.0 or len(read) < 28 or len(piz) < 9 or len(refused) < 10:
         raise AssertionError("the OpenEXR fixtures did not decode as "
                              "written")
+    return rate
 
 
 def _loss_fell(blocks):
@@ -2869,6 +2916,494 @@ def step_census_main(n_sets: int) -> int:
     return 1 if failed else 0
 
 
+TOOLS_DIR = SMOKE_DIR / "tools"
+BRDF_STEPS = 300                # train_brdf on the card
+ENVFIT_MAPS = 512               # generate_envmaps' default
+ENVFIT_EPOCHS = (100, 200)      # two train() calls: the second resumes
+RESUME_DIR = SMOKE_DIR / "resume"
+RESUME_STEPS, RESUME_KILL_AT = 600, 400   # 400: the 25-block snapshot
+RESUME_ARGV = TRAIN_ARGV[:-2] + ["--steps_per_epoch", str(RESUME_STEPS),
+                                 "--exp_name", "resume", "--no_save_test"]
+# one fitter step from the same weights and batch on the CPU and the card,
+# each held against the same step in float64 on the CPU given its own pool
+# and ReLU decisions (envfit_precision): full f32 sums keep the loss within
+# ~2e-7 and every gradient leaf within ~2e-6 (relative, Frobenius) on the
+# H100 and the CPU alike, while TF32 convolutions are 1e-3 to 3e-2 off
+# (`chip_smoke.py --envfit-precision`); the tolerances sit between the two
+ENVFIT_LOSS_TOL, ENVFIT_GRAD_TOL = 1e-5, 1e-5
+
+
+def tools_phase(state, dev):
+    """pretabulate_fh writes the F table (the insert phase's first SSDF
+    load must then read it, not compute it: counted here, checked in the
+    envfit phase); then train_brdf for BRDF_STEPS steps on the card."""
+    import numpy as np
+    from arnerf_tpu_torch.insert import pretabulate_fh, sg_shadow, train_brdf
+    from arnerf_tpu_torch.ops import fused_head as fh
+    from arnerf_tpu_torch.ops import segments as seg
+    fh.reset_launches()
+    seg.reset_launches()
+    res = pretabulate_fh.main([])
+    tab = sg_shadow.get_fh_table()
+    if tab.shape != (2048, 1024) or not np.isfinite(tab).all():
+        raise AssertionError(f"bad F table {tab.shape}")
+    orig = sg_shadow.compute_fh_table
+    state["fh_computes"] = 0
+
+    def counted(*a, **k):
+        state["fh_computes"] += 1
+        return orig(*a, **k)
+
+    sg_shadow.compute_fh_table = counted
+    print(f"tools: pretabulate_fh {res['seconds']:.2f} s -> "
+          f"{res['path']}", flush=True)
+    out = TOOLS_DIR / "model_brdf3.npz"
+    TOOLS_DIR.mkdir(parents=True, exist_ok=True)
+    brdf = train_brdf.main(["--steps", str(BRDF_STEPS), "--out", str(out)])
+    losses = brdf["losses"]
+    first = float(np.mean(losses[:10]))
+    last = float(np.mean(losses[-10:]))
+    state["tools_launches"] = {"head": fh.launches, **seg.launches}
+    state["tools_summary"] = {"fh_seconds": res["seconds"],
+                              "brdf_ms_per_step":
+                                  1e3 * brdf["seconds"] / BRDF_STEPS,
+                              "brdf_loss": (first, last)}
+    print(f"tools: train_brdf {BRDF_STEPS} steps in {brdf['seconds']:.2f} "
+          f"s ({1e3 * brdf['seconds'] / BRDF_STEPS:.2f} ms/step, batch 512 "
+          f"x 4096 directions); loss (mean of 10 steps) {first:.5f} -> "
+          f"{last:.5f}; launches {state['tools_launches']}", flush=True)
+    if not np.isfinite(losses).all() or last >= first:
+        raise AssertionError(f"train_brdf's loss did not fall: {first} -> "
+                             f"{last}")
+
+
+def _fitter_loss(tr, batch):
+    import torch
+    from arnerf_tpu_torch.insert.envfit import _full_f32, sg2envmap
+    with torch.no_grad(), _full_f32():
+        return float(torch.mean((sg2envmap(tr.params(batch), 128, 128)
+                                 - batch) ** 2))
+
+
+def _fitter_forward(net, im, route=None):
+    """SGFittingNet.forward with its discrete decisions exposed: returns
+    (raw SGs, route), the route each layer's 2x2 max-pool argmax (flat
+    indices) and ReLU mask. Given a `route`, the pools and ReLUs follow it
+    instead of their own inputs, so that two precisions of one step differ
+    only by their arithmetic, not by a near tie that rounding breaks the
+    other way (one flipped pool window moves conv1-3's gradients ~1e-3)."""
+    import torch
+    from arnerf_tpu_torch.insert.envfit import CONVS
+    x = im.permute(0, 3, 1, 2)
+    taken = []
+    for i, (name, _, _) in enumerate(CONVS):
+        z = getattr(net, name)(x)
+        if route is None:
+            p, idx = torch.nn.functional.max_pool2d(z, 2, return_indices=True)
+            mask = p > 0
+        else:
+            idx, mask = (t.to(z.device) for t in route[i])
+            p = z.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        taken.append((idx, mask))
+        x = torch.where(mask, p, torch.zeros_like(p))
+    out = net.lin(x.reshape(x.shape[0], -1))
+    return out.reshape(im.shape[0], net.n_sg, 7), taken
+
+
+def _fitter_grads(net, batch, route=None):
+    """The fitter's loss, gradients (leaf name -> float64 numpy) and route
+    on `batch`, in the dtype of `net` and `batch`, under the precision
+    flags the caller has set."""
+    import torch
+    from arnerf_tpu_torch.insert.envfit import sg2envmap
+    sgs, taken = _fitter_forward(net, batch, route)
+    loss = torch.mean((sg2envmap(sgs, 128, 128) - batch) ** 2)
+    grads = torch.autograd.grad(loss, list(net.parameters()))
+    names = [n.replace(".weight", ".w").replace(".bias", ".b")
+             for n, _ in net.named_parameters()]
+    return float(loss.detach()), {n: g.cpu().double().numpy()
+                                  for n, g in zip(names, grads)}, taken
+
+
+def envfit_inputs(maps=None):
+    """The batches of 16 128x128 maps the fitter's card-vs-CPU check runs
+    on: uniform noise, renders of random SGs, those renders rounded to 8
+    bits (flat regions: exact ties in the 2x2 pools) and, when given, the
+    first 16 of `maps`."""
+    import numpy as np
+    import torch
+    from arnerf_tpu_torch.insert.envfit import sg2envmap
+    rng = np.random.default_rng(7)
+    sgs = rng.standard_normal((16, 32, 7)).astype(np.float32)
+    sgs[..., 3] *= 20.0
+    sgs[..., 4:] = np.abs(sgs[..., 4:]) * 0.3
+    with torch.no_grad():
+        render = sg2envmap(torch.from_numpy(sgs), 128, 128).numpy()
+    out = {"noise": rng.random((16, 128, 128, 3), np.float32),
+           "sg": render,
+           "sg_8bit": np.round(np.clip(render, 0, 1) * 255) / 255}
+    if maps is not None:
+        out["generated"] = maps[:16]
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in out.items()}
+
+
+class _backend_flags:
+    """Set torch.backends.cudnn / torch.backends.cuda.matmul attributes
+    for a with-block (`cudnn_x=`, `matmul_x=`)."""
+
+    def __init__(self, **flags):
+        import torch
+        self.flags = [((torch.backends.cudnn if k.startswith("cudnn_") else
+                        torch.backends.cuda.matmul), k.split("_", 1)[1], v)
+                      for k, v in flags.items()]
+
+    def __enter__(self):
+        self.old = [getattr(m, k) for m, k, _ in self.flags]
+        for m, k, v in self.flags:
+            setattr(m, k, v)
+
+    def __exit__(self, *exc):
+        for (m, k, _), v in zip(self.flags, self.old):
+            setattr(m, k, v)
+
+
+# the card's variants of the step: as EnvTrainer runs it (envfit._full_f32
+# inside), with cuDNN's deterministic algorithms, with cuDNN off (PyTorch's
+# own convolutions), and with TF32 allowed (the control the gate must see)
+ENVFIT_CARD_VARIANTS = {
+    "card": {},
+    "card_deterministic": {"cudnn_deterministic": True,
+                           "cudnn_benchmark": False},
+    "card_no_cudnn": {"cudnn_enabled": False},
+    "card_tf32": {"cudnn_allow_tf32": True, "matmul_allow_tf32": True},
+}
+
+
+def envfit_precision(batch, dev, variants=None):
+    """One fitter step's loss and gradients on `batch` (16 maps) from the
+    default key's weights, for the CPU's float32 step ("cpu") and each of
+    `variants` (names of ENVFIT_CARD_VARIANTS, default all), each held
+    against the same step in float64 on the CPU that takes the variant's
+    own pool and ReLU decisions. Per variant: the loss's relative error,
+    each gradient leaf's relative Frobenius error, the largest such error
+    against the float64 step on its own decisions, and the decisions that
+    differ from that step's."""
+    import numpy as np
+    import torch
+    from arnerf_tpu_torch.insert.envfit import (_full_f32, sg_net_from_jax,
+                                                sg_net_init)
+    from arnerf_tpu_torch.ops import threefry
+    flat = sg_net_init(threefry.prng_key(0))
+    x = torch.from_numpy(batch)
+    net64, x64 = sg_net_from_jax(flat).double(), x.double()
+    _, own, own_route = _fitter_grads(net64, x64)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
+
+    def held(loss, grads, route):
+        ref_loss, ref, _ = _fitter_grads(net64, x64, route)
+        flips = sum(int((a.cpu() != b).sum()) for r, o in
+                    zip(route, own_route) for a, b in zip(r, o))
+        return {"loss": abs(loss - ref_loss) / abs(ref_loss),
+                "grads": {k: rel(grads[k], ref[k]) for k in ref},
+                "unrouted": max(rel(grads[k], own[k]) for k in own),
+                "flips": flips}
+
+    net = sg_net_from_jax(flat)
+    sgs = net(x)
+    if not torch.equal(_fitter_forward(net, x)[0], sgs):
+        raise AssertionError("_fitter_forward departs from SGFittingNet")
+    out = {"cpu": held(*_fitter_grads(net, x))}
+    net, xd = sg_net_from_jax(flat, dev), x.to(dev)
+    for name in variants or ENVFIT_CARD_VARIANTS:
+        with _full_f32(), _backend_flags(**ENVFIT_CARD_VARIANTS[name]):
+            out[name] = held(*_fitter_grads(net, xd))
+    return out
+
+
+def envfit_precision_main() -> int:
+    """chip_smoke.py --envfit-precision: envfit_precision on each batch of
+    envfit_inputs() (no generated maps: those need the insert phase),
+    one JSON line per batch. A measurement, run apart from the smoke."""
+    import torch
+    dev = torch.device("cuda")
+    for name, batch in envfit_inputs().items():
+        t0 = time.perf_counter()
+        res = envfit_precision(batch, dev)
+        print("envfit_precision " + json.dumps(
+            {"input": name, "seconds": time.perf_counter() - t0,
+             **{v: {"max_grad": max(r["grads"].values()), **r}
+                for v, r in res.items()}}), flush=True)
+    print(card_line(), flush=True)
+    return 0
+
+
+def envfit_phase(state, dev):
+    """The amortised SG fitter on the insert phase's network insertor:
+    generate_envmaps (ENVFIT_MAPS probes through the network field: the
+    fused head must launch for every probe, the segment sum never), then
+    EnvTrainer at full width (32 SGs, 128x128, batch 16) for
+    ENVFIT_EPOCHS[0] epochs with checkpoints and a second train() that
+    resumes at its last checkpoint and goes on to ENVFIT_EPOCHS[1]; the
+    loss must fall; one step on the CPU and the card against float64
+    (envfit_precision), with TF32 as the control that must fail."""
+    import numpy as np
+    import torch
+    from arnerf_tpu_torch.insert.envfit import EnvTrainer
+    from arnerf_tpu_torch.ops import fused_head as fh
+    from arnerf_tpu_torch.ops import segments as seg
+    print(f"envfit: F-table computations during insert: "
+          f"{state.get('fh_computes')} (pretabulated by the tools phase)",
+          flush=True)
+    if state.get("fh_computes"):
+        raise AssertionError("the insert phase computed the F table instead "
+                             "of reading pretabulate_fh's")
+    ins = state["insert_insertor"]
+    cwd = os.getcwd()
+    os.chdir(SMOKE_DIR / "insert")      # the insertor's relative gen_path
+    try:
+        path = Path(ins.gen_path) / "envmaps.npy"
+        path.unlink(missing_ok=True)
+        per_probe, probe_s = [], []
+        orig = ins.generate_probe
+
+        def probe(*a, **k):
+            before = fh.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            probe_s.append(time.perf_counter() - t0)
+            per_probe.append(fh.launches - before)
+            return out
+
+        ins.generate_probe = probe
+        fh.reset_launches()
+        seg.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            ins.generate_envmaps(ENVFIT_MAPS)
+        finally:
+            del ins.generate_probe
+        gen_s = time.perf_counter() - t0
+        state["envfit_launches"] = fh.launches
+        seg_launches = dict(seg.launches)
+        maps = np.load(path)
+    finally:
+        os.chdir(cwd)
+    print(f"envfit: generate_envmaps {maps.shape} in {gen_s:.2f} s "
+          f"({np.median(probe_s):.4f} s per probe, median); fused-head "
+          f"launches {fh.launches} ({sorted(set(per_probe))} per probe); "
+          f"segment_sum {seg_launches}", flush=True)
+    if maps.shape != (ENVFIT_MAPS, 128, 128, 3) or \
+            not np.isfinite(maps).all():
+        raise AssertionError(f"bad env maps {maps.shape}")
+    if len(per_probe) != ENVFIT_MAPS or min(per_probe) == 0:
+        raise AssertionError(f"a probe did not launch the fused head: "
+                             f"{len(per_probe)} probes, min {min(per_probe)}")
+    if any(seg_launches.values()):
+        raise AssertionError(f"the segment sum ran: {seg_launches}")
+
+    ckpt_dir = SMOKE_DIR / "envfit"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    fh.reset_launches()
+    t0 = time.perf_counter()
+    tr = EnvTrainer(maps, device=dev)
+    init_s = time.perf_counter() - t0
+    probe_batch = tr.envmaps[:16]
+    loss0 = _fitter_loss(tr, probe_batch)
+    times, losses = [], []
+    for epochs in ENVFIT_EPOCHS:
+        steps0 = tr._adam[0].count if tr._adam else 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tr.train(epochs, batch_size=16, ckpt_dir=str(ckpt_dir),
+                               ckpt_every=50))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0, tr._adam[0].count - steps0))
+    loss1 = _fitter_loss(tr, probe_batch)
+    ckpts = sorted(p.name for p in ckpt_dir.iterdir())
+    im = tr.envmaps[0]
+    eval_ms = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.eval(im)
+        torch.cuda.synchronize()
+        eval_ms.append(1e3 * (time.perf_counter() - t0))
+    steps = sum(n for _, n in times)
+    ms_step = 1e3 * sum(t for t, _ in times) / steps
+    prec = {name: envfit_precision(batch, dev, ["card", "card_tf32"])
+            for name, batch in envfit_inputs(maps).items()}
+    state["envfit_summary"] = {
+        "s_per_probe": float(np.median(probe_s)), "ms_per_step": ms_step,
+        "eval_ms": float(np.median(eval_ms[1:])), "init_s": init_s,
+        "loss": (loss0, loss1), "steps": steps,
+        "card_vs_f64": {k: max(r["card"]["grads"].values())
+                        for k, r in prec.items()},
+        "tf32_vs_f64": {k: max(r["card_tf32"]["grads"].values())
+                        for k, r in prec.items()}}
+    print(f"envfit: EnvTrainer (32 SGs, batch 16, {ENVFIT_MAPS} maps): "
+          f"init {init_s:.2f} s; train() calls {times} (seconds, steps); "
+          f"{ms_step:.3f} ms/step; eval {np.median(eval_ms[1:]):.3f} ms; "
+          f"last-batch losses {losses}; loss on 16 maps {loss0:.5f} -> "
+          f"{loss1:.5f}; checkpoints {ckpts}; fused-head launches "
+          f"{fh.launches}", flush=True)
+    for name, res in prec.items():
+        print(f"envfit: one step on {name} maps against float64 on the CPU "
+              f"(tolerances: loss {ENVFIT_LOSS_TOL}, each gradient leaf "
+              f"{ENVFIT_GRAD_TOL} relative Frobenius, given the step's own "
+              f"pool and ReLU decisions): " + json.dumps(res), flush=True)
+    per_epoch = -(-ENVFIT_MAPS // 16)
+    want = [n * per_epoch for n in (ENVFIT_EPOCHS[0],
+                                    ENVFIT_EPOCHS[1] - ENVFIT_EPOCHS[0])]
+    if [n for _, n in times] != want:
+        raise AssertionError(f"the second train() did not resume at epoch "
+                             f"{ENVFIT_EPOCHS[0]}: steps {times}, want "
+                             f"{want}")
+    if f"env_model_{ENVFIT_EPOCHS[1]:06d}.npz" not in ckpts:
+        raise AssertionError(f"checkpoints {ckpts}")
+    if not np.isfinite(losses).all() or loss1 >= loss0:
+        raise AssertionError(f"the fitter's loss did not fall: {loss0} -> "
+                             f"{loss1}")
+    bad = [(name, v) for name, res in prec.items() for v in ("cpu", "card")
+           if res[v]["loss"] > ENVFIT_LOSS_TOL
+           or max(res[v]["grads"].values()) > ENVFIT_GRAD_TOL]
+    if bad:
+        raise AssertionError(f"fitter steps off the float64 step: {bad}")
+    if not any(max(res["card_tf32"]["grads"].values()) > ENVFIT_GRAD_TOL
+               for res in prec.values()):
+        raise AssertionError("the gate passes a TF32 step: it cannot tell "
+                             "the fitter's full f32 from TF32")
+
+
+def resume_worker(argv) -> int:
+    """chip_smoke.py --resume-worker WORK ARGV...: the train entry point in
+    WORK (ARNERF_AUTO_RESUME from the environment), printing each block's
+    metrics and the launch counters as JSON lines."""
+    import torch
+    from arnerf_tpu_torch import train as port_train
+    from arnerf_tpu_torch.ops import fused_head as fh
+    from arnerf_tpu_torch.ops import segments as seg
+    from arnerf_tpu_torch.training.ckpt import tree_leaves
+    os.chdir(argv[0])
+    fh.reset_launches()
+    seg.reset_launches()
+
+    def on_block(step, metrics, trainer):
+        print("BLOCK " + json.dumps({"step": step, "head": fh.launches,
+                                     **seg.launches,
+                                     **{k: float(v) for k, v in
+                                        metrics.items()}}), flush=True)
+
+    res = port_train.main(argv[1:], callback=on_block)
+    torch.cuda.synchronize()
+    trainer = res["trainer"]
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in tree_leaves(trainer.params))
+    print("DONE " + json.dumps({"step": trainer.step, "head": fh.launches,
+                                **seg.launches, "finite": finite,
+                                "psnr": res["psnr"]}), flush=True)
+    return 0
+
+
+def _resume_run(kill_at=None, timeout=600):
+    """The resume worker as a subprocess; with kill_at, SIGKILLed once the
+    snapshot on disk holds that step. Returns (output lines, seconds)."""
+    import signal
+    import numpy as np
+    env = dict(os.environ, ARNERF_AUTO_RESUME="1")
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--resume-worker",
+           str(RESUME_DIR), *RESUME_ARGV]
+    snap = RESUME_DIR / "ckpts" / "synthetic" / "resume" / "snapshot.npz"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        if kill_at is not None:
+            while proc.poll() is None and time.perf_counter() - t0 < timeout:
+                if snap.exists():
+                    try:
+                        with np.load(snap) as f:
+                            if int(f["step"]) >= kill_at:
+                                break
+                    except (OSError, ValueError, KeyError):
+                        pass
+                time.sleep(0.05)
+            os.killpg(proc.pid, signal.SIGKILL)
+        out = proc.communicate(timeout=timeout)[0]
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    return out.splitlines(), time.perf_counter() - t0, proc.returncode
+
+
+def resume_phase(state):
+    """ARNERF_AUTO_RESUME=1: the train entry point at the train phase's
+    configuration for RESUME_STEPS steps in a subprocess, SIGKILLed once
+    its snapshot holds step RESUME_KILL_AT; rerun, it must resume there,
+    finish, remove the snapshot, keep finite parameters and launch both
+    kernels, its first block's loss within 2x the killed run's last logged
+    loss."""
+    import numpy as np
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    RESUME_DIR.mkdir(parents=True)
+    lines, killed_s, code = _resume_run(kill_at=RESUME_KILL_AT)
+    snap = RESUME_DIR / "ckpts" / "synthetic" / "resume" / "snapshot.npz"
+    with np.load(snap) as f:
+        snap_step = int(f["step"])
+    blocks = [json.loads(x[6:]) for x in lines if x.startswith("BLOCK ")]
+    log = RESUME_DIR / "logs" / "synthetic" / "resume" / "metrics.jsonl"
+    logged = [json.loads(x) for x in log.read_text().splitlines()]
+    print(f"resume: killed (code {code}) after {killed_s:.1f} s at block "
+          f"step {blocks[-1]['step'] if blocks else None}; snapshot at step "
+          f"{snap_step}; last logged {logged[-1]}", flush=True)
+    if snap_step != RESUME_KILL_AT:
+        raise AssertionError(f"snapshot at {snap_step}, want "
+                             f"{RESUME_KILL_AT}")
+    lines, resumed_s, code = _resume_run()
+    text = "\n".join(lines)
+    blocks2 = [json.loads(x[6:]) for x in lines if x.startswith("BLOCK ")]
+    done = [json.loads(x[5:]) for x in lines if x.startswith("DONE ")]
+    if code != 0 or not done:
+        raise AssertionError(f"the resumed run failed ({code}): "
+                             f"{text[-3000:]}")
+    done = done[0]
+    state["resume_launches"] = {k: blocks2[-1][k]
+                                for k in ("head", "pack", "exact")}
+    state["resume_val_launches"] = done["head"] - blocks2[-1]["head"]
+    ms = 1e3 * resumed_s / max(1, RESUME_STEPS - RESUME_KILL_AT)
+    state["resume_summary"] = {"killed_s": killed_s, "resumed_s": resumed_s,
+                               "first_loss": blocks2[0]["loss"],
+                               "last_logged_loss": logged[-1]["loss"]}
+    print(f"resume: rerun in {resumed_s:.1f} s (process, incl. start, data "
+          f"and validation; {ms:.1f} ms per resumed step); blocks "
+          f"{[b['step'] for b in blocks2]}; first block loss "
+          f"{blocks2[0]['loss']:.5f} vs the killed run's last logged "
+          f"{logged[-1]['loss']:.5f}; done {done}; launches in training "
+          f"{state['resume_launches']}", flush=True)
+    if f"auto-resume: snapshot at step {RESUME_KILL_AT}" not in text:
+        raise AssertionError(f"no resume line: {text[-2000:]}")
+    if done["step"] != RESUME_STEPS or blocks2[0]["step"] != \
+            RESUME_KILL_AT + 16:
+        raise AssertionError(f"resumed run ran {blocks2[0]['step']} .. "
+                             f"{done['step']}")
+    if snap.exists():
+        raise AssertionError("the snapshot was not removed")
+    if not done["finite"]:
+        raise AssertionError("non-finite parameters after the resume")
+    if min(state["resume_launches"].values()) == 0:
+        raise AssertionError(f"a kernel did not run in the resumed process: "
+                             f"{state['resume_launches']}")
+    if not blocks2[0]["loss"] < 2 * logged[-1]["loss"]:
+        raise AssertionError("the resumed run's first block lost the "
+                             "snapshot's progress")
+
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2972,8 +3507,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--parallel-worker"]:
         return parallel_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--resume-worker"]:
+        return resume_worker(sys.argv[2:])
     if sys.argv[1:] == ["--multi-gpu"]:
         return multi_gpu_main()
+    if sys.argv[1:] == ["--envfit-precision"]:
+        return envfit_precision_main()
     if sys.argv[1:2] == ["--step-census"]:
         return step_census_main(int(sys.argv[2]) if sys.argv[2:] else 20)
     dev = torch.device("cuda")
@@ -3045,7 +3584,10 @@ def main() -> int:
     phase("slice", slice_phase)
     phase("train", lambda: run_train(state))
     phase("parallel", lambda: parallel_phase(state, dev))
+    phase("tools", lambda: tools_phase(state, dev))
     phase("insert", lambda: insert_phase(state, dev))
+    phase("envfit", lambda: envfit_phase(state, dev))
+    phase("resume", lambda: resume_phase(state))
     phase("real_updates", lambda: run_real_updates(state, dev))
     phase("baked", lambda: baked_phase(state, dev))
     phase("reference", reference_phase)
@@ -3122,6 +3664,17 @@ def main() -> int:
             if bf16 else 0
         by_path["hdr_eval"] = 0 if bf16 else state.get("hdr_eval_launches",
                                                        0)
+        # the tools (no field: 0), generate_envmaps' probes on the network
+        # insertor (bf16, as insert), and the resumed training run (bf16)
+        # and its validation renders
+        by_path["tools"] = state.get("tools_launches", {}).get("head", 0) \
+            if bf16 else 0
+        by_path["envfit_generate_envmaps"] = state.get(
+            "envfit_launches", 0) if bf16 else 0
+        by_path["resume_train"] = state.get("resume_launches", {}).get(
+            "head", 0) if bf16 else 0
+        by_path["resume_train_validation"] = state.get(
+            "resume_val_launches", 0) if bf16 else 0
         # the viewer renders and bakes in f32: its network frames, its
         # startup bakes and its live preview's delta bake
         for k, v in state.get("viewer_launches", {}).items():
@@ -3152,6 +3705,9 @@ def main() -> int:
             by_path[f"captures_train_{name}"] = state.get(
                 ("capture_train", name), {}).get(mode, 0)
         by_path["hdr_train"] = state.get("hdr_train_launches", {}).get(
+            mode, 0)
+        by_path["tools"] = state.get("tools_launches", {}).get(mode, 0)
+        by_path["resume_train"] = state.get("resume_launches", {}).get(
             mode, 0)
         kernels.append({
             "name": f"segment_sum[{mode}]", "route": "cuda",

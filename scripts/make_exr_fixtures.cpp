@@ -7,12 +7,22 @@
 //   ./make_exr_fixtures tests/data/exr
 //
 // Supported kinds (arnerf_tpu_torch/image_io.py reads them), W x H = 21 x 35
-// so that ZIP's 16-line blocks end in a partial one:
-//   {none,rle,zips,zip}_{half,float}_{rgb,rgba}.exr
+// so that ZIP's 16-line and PIZ's 32-line blocks end in a partial one:
+//   {none,rle,zips,zip,piz}_{half,float}_{rgb,rgba}.exr
 //   zip_half_rgba_window.exr      dataWindow (4, -3) - (24, 31)
 //   zips_half_rgba_decreasing.exr lineOrder DECREASING_Y
 //   zip_mixed_rgbaz.exr           R, G HALF; B, A FLOAT; an extra UINT "Z"
-// Kinds the reader refuses (8 x 8): piz, pxr24, b44, b44a, dwaa, dwab
+//   piz_mixed_{rgb,rgba}.exr      R, G HALF; B (, A) FLOAT; an extra UINT "Z"
+// and three PIZ files whose values are their own, in <name>.npy (float32,
+// H x W x channels):
+//   piz_half_rgba_window.exr  21 x 45 at dataWindow (5, -7) - (25, 37):
+//                             a full 32-line block and a 13-line one
+//   piz_half_rgb_raw.exr      21 x 64: a block of random HALF words, which
+//                             OpenEXR stores raw, then a compressed one
+//   piz_float_rgb_wav16.exr   256 x 32 FLOAT ramps with noise in the low
+//                             word: over 2^14 distinct words, so the block
+//                             takes the 16-bit wavelet
+// Kinds the reader refuses (8 x 8): pxr24, b44, b44a, dwaa, dwab
 // compression; tiled, multi-part and deep files; a luminance-only file; UINT
 // colour channels.
 //
@@ -20,10 +30,13 @@
 // of the FLOAT channels, [1] the same values rounded to HALF as the HALF
 // channels hold them. RGB spans 1e-4 to 6e4 on smooth ramps (so that every
 // codec compresses) with a block of zeros; A steps through 0 ... 1.
+// expected_piz.npy holds the same for the piz_{half,float,mixed}_* files
+// (master_piz: RGB in [0.5, 1.25], so that PIZ compresses).
 
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
+#include <cstring>
 #include <string>
 #include <vector>
 
@@ -51,24 +64,37 @@ float master(int y, int x, int c) {
   return (float)std::pow(10.0, -4.0 + 8.78 * step / 96.0);
 }
 
+// The PIZ files' channels. OpenEXR stores every PIZ block of master()'s
+// values raw: its HALF words span 0x068d..0x7b53, so each block's bitmap
+// alone (3.8 KB) is nearly the block's size. These ramps span [0.5, 1.25]
+// plus FLOAT detail below HALF's precision, and compress.
+float master_piz(int y, int x, int c) {
+  if (c == 3) return (float)((3 * x + y) % 11) / 10.0f;
+  if (x < 3 && y < 5) return 0.0f;
+  const int step = (x + 2 * y + 7 * c) % 97;
+  return 0.5f + step / 128.0f + (float)((x * y) % 5) * std::ldexp(1.0f, -20);
+}
+
 // Pixel planes of one file: float and half copies of the master channels,
 // and a UINT plane.
 struct Planes {
   std::vector<float> f[4];
   std::vector<half> h[4];
   std::vector<uint32_t> u;
-  Planes(int w, int hgt) {
+  Planes(int w, int hgt, bool piz = false) {
     for (int c = 0; c < 4; c++) {
       f[c].resize((size_t)w * hgt);
       h[c].resize((size_t)w * hgt);
       for (int y = 0; y < hgt; y++)
         for (int x = 0; x < w; x++) {
-          f[c][(size_t)y * w + x] = master(y % H, x % W, c);
+          f[c][(size_t)y * w + x] = piz ? master_piz(y % H, x % W, c)
+                                        : master(y % H, x % W, c);
           h[c][(size_t)y * w + x] = half(f[c][(size_t)y * w + x]);
         }
     }
     u.resize((size_t)w * hgt);
-    for (size_t i = 0; i < u.size(); i++) u[i] = (uint32_t)(i * 2654435761u);
+    for (size_t i = 0; i < u.size(); i++)
+      u[i] = piz ? (uint32_t)i : (uint32_t)(i * 2654435761u);
   }
 };
 
@@ -88,18 +114,16 @@ void add_slices(Imf::FrameBuffer& fb, Imf::ChannelList& ch, Planes& p,
   }
 }
 
-void scanline(const std::string& name, Imf::Compression comp,
-              const Imf::PixelType* types, int n, int w = W, int hgt = H,
-              int x0 = 0, int y0 = 0,
-              Imf::LineOrder order = Imf::INCREASING_Y, bool uint_z = false,
-              bool luminance = false) {
+void write_scanline(const std::string& name, Imf::Compression comp,
+                    const Imf::PixelType* types, int n, int w, int hgt,
+                    int x0, int y0, Imf::LineOrder order, bool uint_z,
+                    bool luminance, Planes& p) {
   Imf::Header hdr(w, hgt);
   hdr.dataWindow() = Imath::Box2i(Imath::V2i(x0, y0),
                                   Imath::V2i(x0 + w - 1, y0 + hgt - 1));
   hdr.displayWindow() = Imath::Box2i(Imath::V2i(0, 0), Imath::V2i(31, 31));
   hdr.compression() = comp;
   hdr.lineOrder() = order;
-  Planes p(w, hgt);
   Imf::FrameBuffer fb;
   if (luminance) {
     hdr.channels().insert("Y", Imf::Channel(Imf::HALF));
@@ -117,6 +141,93 @@ void scanline(const std::string& name, Imf::Compression comp,
   Imf::OutputFile file((dir + "/" + name).c_str(), hdr);
   file.setFrameBuffer(fb);
   file.writePixels(hgt);
+}
+
+void scanline(const std::string& name, Imf::Compression comp,
+              const Imf::PixelType* types, int n, int w = W, int hgt = H,
+              int x0 = 0, int y0 = 0,
+              Imf::LineOrder order = Imf::INCREASING_Y, bool uint_z = false,
+              bool luminance = false) {
+  Planes p(w, hgt, comp == Imf::PIZ_COMPRESSION);
+  write_scanline(name, comp, types, n, w, hgt, x0, y0, order, uint_z,
+                 luminance, p);
+}
+
+// A float32 .npy of the given shape.
+void write_npy(const std::string& name, const std::vector<float>& data,
+               const std::vector<int>& shape) {
+  std::string dims;
+  for (int d : shape) dims += std::to_string(d) + ", ";
+  std::string header = "{'descr': '<f4', 'fortran_order': False, "
+                       "'shape': (" + dims.substr(0, dims.size() - 2) +
+                       "), }";
+  while ((10 + header.size() + 1) % 64) header += ' ';
+  header += '\n';
+  FILE* f = fopen((dir + "/" + name).c_str(), "wb");
+  fwrite("\x93NUMPY\x01\x00", 1, 8, f);
+  const uint16_t len = (uint16_t)header.size();
+  fwrite(&len, 2, 1, f);
+  fwrite(header.data(), 1, header.size(), f);
+  fwrite(data.data(), 4, data.size(), f);
+  fclose(f);
+}
+
+// The values of the first n channels of planes p (HALF or FLOAT as
+// `types` says), H x W x n, as <stem>.npy beside <stem>.exr.
+void write_values(const std::string& stem, const Planes& p,
+                  const Imf::PixelType* types, int n, int w, int hgt) {
+  std::vector<float> v;
+  for (int y = 0; y < hgt; y++)
+    for (int x = 0; x < w; x++)
+      for (int c = 0; c < n; c++) {
+        const size_t i = (size_t)y * w + x;
+        v.push_back(types[c] == Imf::HALF ? (float)p.h[c][i] : p.f[c][i]);
+      }
+  write_npy(stem + ".npy", v, {hgt, w, n});
+}
+
+uint32_t mix(uint32_t x) {      // a 32-bit integer hash
+  x ^= x >> 16;
+  x *= 0x7feb352du;
+  x ^= x >> 15;
+  x *= 0x846ca68bu;
+  return x ^ (x >> 16);
+}
+
+void piz_specials(const Imf::PixelType* hf, const Imf::PixelType* fl) {
+  {  // two blocks, the second 13 lines, in an offset data window
+    const int w = W, hgt = 45;
+    Planes p(w, hgt, true);
+    write_scanline("piz_half_rgba_window.exr", Imf::PIZ_COMPRESSION, hf, 4, w,
+                   hgt, 5, -7, Imf::INCREASING_Y, false, false, p);
+    write_values("piz_half_rgba_window", p, hf, 4, w, hgt);
+  }
+  {  // random finite HALF words in the first block: stored raw
+    const int w = W, hgt = 64;
+    Planes p(w, hgt, true);
+    for (int c = 0; c < 3; c++)
+      for (int i = 0; i < w * 32; i++) {
+        uint16_t bits = (uint16_t)mix(i * 3 + c);
+        if (((bits >> 10) & 0x1f) == 0x1f) bits &= 0xbfff;  // no inf / NaN
+        p.h[c][i].setBits(bits);
+      }
+    write_scanline("piz_half_rgb_raw.exr", Imf::PIZ_COMPRESSION, hf, 3, w,
+                   hgt, 0, 0, Imf::INCREASING_Y, false, false, p);
+    write_values("piz_half_rgb_raw", p, hf, 3, w, hgt);
+  }
+  {  // FLOAT ramps with a bit of noise: 24,576 distinct low words
+    const int w = 256, hgt = 32;
+    Planes p(w, hgt);
+    for (int c = 0; c < 3; c++)
+      for (int i = 0; i < w * hgt; i++) {
+        const uint32_t bits =
+            0x3f800000u + 2u * (3u * i + c) + (mix(i * 3 + c) & 1);
+        memcpy(&p.f[c][i], &bits, 4);
+      }
+    write_scanline("piz_float_rgb_wav16.exr", Imf::PIZ_COMPRESSION, fl, 3, w,
+                   hgt, 0, 0, Imf::INCREASING_Y, false, false, p);
+    write_values("piz_float_rgb_wav16", p, fl, 3, w, hgt);
+  }
 }
 
 void tiled(const std::string& name) {
@@ -177,29 +288,16 @@ void deep(const std::string& name) {
   file.writePixels(hgt);
 }
 
-void write_npy(const std::string& name) {
-  char dict[128];
-  snprintf(dict, sizeof dict,
-           "{'descr': '<f4', 'fortran_order': False, 'shape': (2, %d, %d, "
-           "4), }",
-           H, W);
-  std::string header(dict);
-  while ((10 + header.size() + 1) % 64) header += ' ';
-  header += '\n';
-  FILE* f = fopen((dir + "/" + name).c_str(), "wb");
-  fwrite("\x93NUMPY\x01\x00", 1, 8, f);
-  const uint16_t len = (uint16_t)header.size();
-  fwrite(&len, 2, 1, f);
-  fwrite(header.data(), 1, header.size(), f);
+void write_expected(const std::string& name, bool piz) {
+  std::vector<float> v;
   for (int k = 0; k < 2; k++)
     for (int y = 0; y < H; y++)
       for (int x = 0; x < W; x++)
         for (int c = 0; c < 4; c++) {
-          const float v = master(y, x, c);
-          const float out = k ? (float)half(v) : v;
-          fwrite(&out, 4, 1, f);
+          const float f = piz ? master_piz(y, x, c) : master(y, x, c);
+          v.push_back(k ? (float)half(f) : f);
         }
-  fclose(f);
+  write_npy(name, v, {2, H, W, 4});
 }
 
 }  // namespace
@@ -216,7 +314,8 @@ int main(int argc, char** argv) {
   } codecs[] = {{"none", Imf::NO_COMPRESSION},
                 {"rle", Imf::RLE_COMPRESSION},
                 {"zips", Imf::ZIPS_COMPRESSION},
-                {"zip", Imf::ZIP_COMPRESSION}};
+                {"zip", Imf::ZIP_COMPRESSION},
+                {"piz", Imf::PIZ_COMPRESSION}};
   const Imf::PixelType hf[4] = {Imf::HALF, Imf::HALF, Imf::HALF, Imf::HALF};
   const Imf::PixelType fl[4] = {Imf::FLOAT, Imf::FLOAT, Imf::FLOAT,
                                 Imf::FLOAT};
@@ -234,12 +333,16 @@ int main(int argc, char** argv) {
                                    Imf::FLOAT};
   scanline("zip_mixed_rgbaz.exr", Imf::ZIP_COMPRESSION, mixed, 4, W, H, 0, 0,
            Imf::INCREASING_Y, true);
+  for (int n = 3; n <= 4; n++)
+    scanline(std::string("piz_mixed_") + (n == 4 ? "rgba" : "rgb") + ".exr",
+             Imf::PIZ_COMPRESSION, mixed, n, W, H, 0, 0, Imf::INCREASING_Y,
+             true);
+  piz_specials(hf, fl);
 
   const struct {
     const char* name;
     Imf::Compression comp;
-  } refused[] = {{"piz", Imf::PIZ_COMPRESSION},
-                 {"pxr24", Imf::PXR24_COMPRESSION},
+  } refused[] = {{"pxr24", Imf::PXR24_COMPRESSION},
                  {"b44", Imf::B44_COMPRESSION},
                  {"b44a", Imf::B44A_COMPRESSION},
                  {"dwaa", Imf::DWAA_COMPRESSION},
@@ -254,6 +357,7 @@ int main(int argc, char** argv) {
            0, Imf::INCREASING_Y, false, true);
   const Imf::PixelType ui[3] = {Imf::UINT, Imf::UINT, Imf::UINT};
   scanline("unsupported_uint.exr", Imf::ZIP_COMPRESSION, ui, 3, 8, 8);
-  write_npy("expected.npy");
+  write_expected("expected.npy", false);
+  write_expected("expected_piz.npy", true);
   return 0;
 }

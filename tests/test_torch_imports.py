@@ -65,6 +65,21 @@ def test_port_file_list_holds_parallel_and_the_rtmv_prep():
     assert "arnerf_tpu_torch/datasets/rtmv.py" in PORT_FILES
 
 
+def test_port_file_list_holds_the_last_modules():
+    """The fitter, the profiling helpers and the tools are checked as every
+    other module of the port; fit_log_loss imports scipy only inside
+    fit(), so the package imports without it."""
+    for rel in ("insert/envfit.py", "insert/pretabulate_fh.py",
+                "insert/fit_log_loss.py", "insert/train_brdf.py",
+                "utils/profiling.py"):
+        assert f"arnerf_tpu_torch/{rel}" in PORT_FILES
+    tree = ast.parse((REPO / "arnerf_tpu_torch" / "insert" /
+                      "fit_log_loss.py").read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    assert all("scipy" not in ast.dump(n) for n in top)
+
+
 @pytest.mark.parametrize("rel", PORT_FILES)
 def test_no_jax_or_reference_package_imports(rel):
     bad = [(line, mod) for line, mod in _imports(REPO / rel)

@@ -45,14 +45,45 @@
 //   rows 0.254 ms, 2^21+3 rows 1.79 ms on an H100 80GB HBM3, 700 W, slower
 //   than the cuBLAS chain (0.21 ms); PERF.md holds this design's times.
 //
-// f32 mode: CUDA cores, the earlier design, kept because TF32 tensor cores
-// would change f32 results. Each block stages all five weight matrices
-// (9,408 floats) in shared memory; each thread owns one row and keeps its
-// 64-wide activations in registers; every weight read is a shared-memory
-// broadcast.
-// There is deliberately no grid-stride loop: with one, the compiler hoists
-// the loop-invariant shared-memory weights into registers and spills ~37 KB
-// a thread (255 registers, 28 ms at 2M rows).
+// f32 mode: CUDA cores. It replaces the same Pallas kernel
+// (arnerf_tpu/ops/fused_head.py:42, _head_kernel) at the float32 compute
+// type, the serving paths' default. Every product is an f32 FMA and every
+// sum is in f32: TF32 tensor cores would change f32 results, so there is
+// no mma here. It is bound by operations: 9,408 FMAs a row at 67 TFLOP/s,
+// 0.0736 ms at 2^18 rows (its 268 B a row take 0.021 ms at 3.35 TB/s).
+//   * Persistent blocks of 3 groups x 128 threads, one block an SM (the
+//     count asked once per device). Each group is a pipeline over 64-row
+//     tiles with its own named barrier; the three share the weights.
+//   * The weights (W0..V1 as given, V2 padded to 4 columns) are staged
+//     once per block by cp.async and stay in shared memory for the
+//     block's life: 38 KB per SM, not per 128 rows.
+//   * Each layer is a small GEMM of register-tiled outer products. For the
+//     64-wide layers a thread owns 4 rows x 8 columns (rows tr + 16i,
+//     columns 4tc.. and 32 + 4tc..); per 4 k it reads 4 activation and 8
+//     weight float4s and does 128 FMAs (10.7 a shared load, against 3.8
+//     and one for V2 in the earlier design). W1 (64 -> 16): 4 rows x 2
+//     columns. V2 (64 -> 3, padded to 4): 2 threads a row, each half of
+//     k, summed by a shuffle.
+//   * Activations live in shared memory, row-major with strides padded to
+//     4 banks a row (conflict-free float4 reads), in two buffers in turn
+//     (feats -> P -> h in Q -> P -> Q -> rgb in P); relu is applied as
+//     the accumulators are written back. Only 32 accumulators and 24
+//     operands stay in registers.
+//   * The next tile's feats and sh (the raw rows, zero-filled past n)
+//     arrive by cp.async in the group's second input buffer while this
+//     tile computes.
+//   * h (64 B a row) and rgb (12 B a row) leave from shared memory as
+//     coalesced 16-B stores; the ragged tail is masked.
+//   * Every tile iteration passes named barriers that clobber memory, so
+//     the loop-invariant weight reads cannot be hoisted out of the loop
+//     into registers (they were, in a grid-stride loop without barriers:
+//     255 registers, a 37 KB spill, 28 ms at 2M rows).
+//   scripts/fused_head_f32_variants.py builds this kernel with other
+//   group counts, tile rows and K unrolling and times them beside it.
+//   Earlier design (one row a thread, activations in per-thread arrays,
+//   weights staged again by every 128-row block, no overlap): at 2^18
+//   rows 0.318-0.321 ms on an H100 80GB HBM3, 700 W, 23 % of the bound;
+//   PERF.md holds its times and this design's.
 //
 // The gradient recomputes through the plain version (ops/fused_head.py).
 // Plain C interface, loaded with ctypes; the launch goes on the caller's
@@ -74,34 +105,171 @@ constexpr int kW1 = kHid * kSig;           // 1024
 constexpr int kV0 = (kSh + kSig) * kHid;   // 2048
 constexpr int kV1 = kHid * kHid;           // 4096
 constexpr int kV2 = kHid * kRgb;           // 192
-constexpr int kThreads = 128;
+constexpr int kMaxDevices = 64;
 
 // ---------------------------------------------------------------------------
 // f32 mode: CUDA cores
 // ---------------------------------------------------------------------------
 
-// acc[0:N] += a * W[row, 0:N] for a row of a shared-memory matrix whose
-// width N is a multiple of 4 (float4 broadcast reads).
+constexpr int kGroups = 3;             // row-tile pipelines a block
+constexpr int kMR = 4;                 // rows of a thread's register tile
+constexpr int kRows = 64;              // rows of a tile
+constexpr int kGroupThreads = kRows * 8 / kMR;   // 128: 4 warps
+constexpr int kF32Threads = kGroups * kGroupThreads;
+constexpr int kRG = kRows / kMR;       // row groups: rows tr + kRG i
+constexpr int kSF = kIn + 4;           // shared row strides (floats), each a
+constexpr int kSS = kSh + 4;           //   multiple of 4 banks: feats, sh,
+constexpr int kSA = kHid + 4;          //   activations
+// shared memory in floats: the weights, then per group two input stages
+// and two activation buffers
+constexpr int kOffW1 = kW0;
+constexpr int kOffV0 = kOffW1 + kW1;
+constexpr int kOffV1 = kOffV0 + kV0;
+constexpr int kOffV2 = kOffV1 + kV1;
+constexpr int kWeights = kOffV2 + kHid * 4;       // V2 padded to 4 columns
+constexpr int kStage = kRows * (kSF + kSS);
+constexpr int kAct = kRows * kSA;
+constexpr int kGroupFloats = 2 * kStage + 2 * kAct;
+constexpr int kF32Smem = (kWeights + kGroups * kGroupFloats) * 4;  // 228,352 B
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 template <int N>
-__device__ __forceinline__ void axpy_row(float a, const float* __restrict__ w,
-                                         float* acc) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// the 128 threads of group g (barrier 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "n"(kGroupThreads)
+               : "memory");
+}
+
+// A tile's raw rows into one input stage: feats (row stride kSF), then sh
+// (kSS); rows past n are zero-filled.
+__device__ __forceinline__ void load_tile(float* stage,
+                                          const float* __restrict__ feats,
+                                          const float* __restrict__ sh,
+                                          int64_t row0, int64_t n, int gt) {
 #pragma unroll
-  for (int j = 0; j < N / 4; ++j) {
-    float4 v = w4[j];
-    acc[4 * j + 0] = fmaf(a, v.x, acc[4 * j + 0]);
-    acc[4 * j + 1] = fmaf(a, v.y, acc[4 * j + 1]);
-    acc[4 * j + 2] = fmaf(a, v.z, acc[4 * j + 2]);
-    acc[4 * j + 3] = fmaf(a, v.w, acc[4 * j + 3]);
+  for (int c = gt; c < kRows * kIn / 4; c += kGroupThreads) {
+    const int r = c / (kIn / 4), q = c % (kIn / 4);
+    const bool valid = row0 + r < n;
+    cp_async16(stage + r * kSF + 4 * q,
+               feats + (valid ? row0 + r : 0) * kIn + 4 * q, valid);
+  }
+#pragma unroll
+  for (int c = gt; c < kRows * kSh / 4; c += kGroupThreads) {
+    const int r = c / (kSh / 4), q = c % (kSh / 4);
+    const bool valid = row0 + r < n;
+    cp_async16(stage + kRows * kSF + r * kSS + 4 * q,
+               sh + (valid ? row0 + r : 0) * kSh + 4 * q, valid);
   }
 }
 
-__device__ __forceinline__ void stage(float* __restrict__ dst,
-                                      const float* __restrict__ src, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+template <int V>
+struct Vec;
+template <>
+struct Vec<4> {
+  float v[4];
+  __device__ __forceinline__ void load(const float* p) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  }
+};
+template <>
+struct Vec<2> {
+  float v[2];
+  __device__ __forceinline__ void load(const float* p) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  }
+};
+
+__device__ __forceinline__ float lane_of(const float4& x, int kk) {
+  return kk == 0 ? x.x : kk == 1 ? x.y : kk == 2 ? x.z : x.w;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// acc[i][c] += sum_{k < K} a[row_i * SA + k] * w[k * SW + col_c] for the
+// thread's 4 rows row_i = tr + 16 i and its NV vectors of V columns
+// starting at V tc + 8 V j: per 4 k, 4 activation float4s, 4 NV weight
+// vectors, 16 V NV FMAs, summed in k order.
+template <int K, int SA, int SW, int V, int NV>
+__device__ __forceinline__ void gemm(float (&acc)[kMR][V * NV],
+                                     const float* a, const float* w, int tr,
+                                     int tc) {
+#pragma unroll
+  for (int k = 0; k < K; k += 4) {
+    float4 x[kMR];
+#pragma unroll
+    for (int i = 0; i < kMR; ++i)
+      x[i] = *reinterpret_cast<const float4*>(a + (tr + kRG * i) * SA + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      Vec<V> wv[NV];
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        wv[j].load(w + (k + kk) * SW + V * tc + 8 * V * j);
+#pragma unroll
+      for (int i = 0; i < kMR; ++i) {
+        const float xi = lane_of(x[i], kk);
+#pragma unroll
+        for (int j = 0; j < NV; ++j)
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            acc[i][V * j + e] = fmaf(xi, wv[j].v[e], acc[i][V * j + e]);
+      }
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[kMR][N]) {
+#pragma unroll
+  for (int i = 0; i < kMR; ++i)
+#pragma unroll
+    for (int c = 0; c < N; ++c) acc[i][c] = 0.f;
+}
+
+// The accumulators of a 64-wide layer, through relu, into an activation
+// buffer (row stride kSA).
+__device__ __forceinline__ void write_relu(float* out,
+                                           const float (&acc)[kMR][8], int tr,
+                                           int tc) {
+#pragma unroll
+  for (int i = 0; i < kMR; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      *reinterpret_cast<float4*>(out + (tr + kRG * i) * kSA + 4 * tc + 32 * j) =
+          make_float4(fmaxf(acc[i][4 * j], 0.f), fmaxf(acc[i][4 * j + 1], 0.f),
+                      fmaxf(acc[i][4 * j + 2], 0.f),
+                      fmaxf(acc[i][4 * j + 3], 0.f));
+}
+
+// A tile's rgb leaves as 16-B stores (its 64 x 3 floats are contiguous);
+// the ragged tail, float by float.
+__device__ __forceinline__ void store_rgb(float* __restrict__ rgb_out,
+                                          const float* staged, int64_t row0,
+                                          int64_t n, int gt) {
+  if (row0 + kRows <= n) {
+    if (gt < kRows * kRgb / 4)
+      reinterpret_cast<float4*>(rgb_out + row0 * kRgb)[gt] =
+          reinterpret_cast<const float4*>(staged)[gt];
+  } else {
+    const int valid = static_cast<int>(n - row0) * kRgb;
+    for (int i = gt; i < valid; i += kGroupThreads)
+      rgb_out[row0 * kRgb + i] = staged[i];
+  }
+}
+
+__global__ void __launch_bounds__(kF32Threads, 1)
 fused_head_f32_kernel(const float* __restrict__ feats,
                       const float* __restrict__ sh,
                       const float* __restrict__ w0,
@@ -110,86 +278,111 @@ fused_head_f32_kernel(const float* __restrict__ feats,
                       const float* __restrict__ v1,
                       const float* __restrict__ v2, float* __restrict__ h_out,
                       float* __restrict__ rgb_out, int64_t n) {
-  __shared__ __align__(16) float sW0[kW0];
-  __shared__ __align__(16) float sW1[kW1];
-  __shared__ __align__(16) float sV0[kV0];
-  __shared__ __align__(16) float sV1[kV1];
-  __shared__ __align__(16) float sV2[kV2];
-  stage(sW0, w0, kW0);
-  stage(sW1, w1, kW1);
-  stage(sV0, v0, kV0);
-  stage(sV1, v1, kV1);
-  stage(sV2, v2, kV2);
+  extern __shared__ __align__(16) float smem[];
+  const int g = threadIdx.x / kGroupThreads, gt = threadIdx.x % kGroupThreads;
+  const int lane = gt & 31;
+  const int tc = lane & 7, tr = 4 * (gt >> 5) + (lane >> 3);
+  float* sw = smem;
+  float* stages = smem + kWeights + g * kGroupFloats;
+  float* P = stages + 2 * kStage;
+  float* Q = P + kAct;
+
+  const int64_t tiles = (n + kRows - 1) / kRows;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kGroups;
+  // consecutive tiles go to different blocks (SMs) first
+  int64_t tile = static_cast<int64_t>(g) * gridDim.x + blockIdx.x;
+
+  // the weights, once per block; with them the group's first tile
+  const float* const src[4] = {w0, w1, v0, v1};
+  const int off[5] = {0, kOffW1, kOffV0, kOffV1, kOffV2};
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    for (int i = threadIdx.x; i < (off[m + 1] - off[m]) / 4; i += kF32Threads)
+      cp_async16(sw + off[m] + 4 * i, src[m] + 4 * i, true);
+  for (int i = threadIdx.x; i < kHid * 4; i += kF32Threads)
+    sw[kOffV2 + i] = (i & 3) < kRgb ? v2[(i >> 2) * kRgb + (i & 3)] : 0.f;
+  if (tile < tiles) load_tile(stages, feats, sh, tile * kRows, n, gt);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (row < n) {
-    // ---- sigma net: a = relu(feats @ W0); h = a @ W1 ----------------------
-    float x[kIn];
-    const float4* f4 = reinterpret_cast<const float4*>(feats + row * kIn);
-#pragma unroll
-    for (int i = 0; i < kIn / 4; ++i) {
-      float4 v = f4[i];
-      x[4 * i + 0] = v.x;
-      x[4 * i + 1] = v.y;
-      x[4 * i + 2] = v.z;
-      x[4 * i + 3] = v.w;
-    }
-    float a[kHid];
-#pragma unroll
-    for (int j = 0; j < kHid; ++j) a[j] = 0.f;
-#pragma unroll
-    for (int k = 0; k < kIn; ++k) axpy_row<kHid>(x[k], sW0 + k * kHid, a);
-#pragma unroll
-    for (int j = 0; j < kHid; ++j) a[j] = fmaxf(a[j], 0.f);
+  int buf = 0;
+#pragma unroll 1
+  for (; tile < tiles; tile += step, buf ^= 1) {
+    const int64_t row0 = tile * kRows;
+    const float* in = stages + buf * kStage;
+    if (tile + step < tiles)
+      load_tile(stages + (buf ^ 1) * kStage, feats, sh, row0 + step * kRows,
+                n, gt);
+    cp_async_commit();
+    cp_async_wait<1>();   // this tile's rows have landed
+    group_sync(g);
 
-    float h[kSig];
+    // ---- sigma net: P = relu(feats @ W0); Q[:, :16] = h = P @ W1 -------
+    float acc[kMR][8];
+    zero_acc(acc);
+    gemm<kIn, kSF, kHid, 4, 2>(acc, in, sw, tr, tc);
+    write_relu(P, acc, tr, tc);
+    group_sync(g);
+    float hacc[kMR][2];
+    zero_acc(hacc);
+    gemm<kHid, kSA, kSig, 2, 1>(hacc, P, sw + kOffW1, tr, tc);
 #pragma unroll
-    for (int j = 0; j < kSig; ++j) h[j] = 0.f;
-#pragma unroll
-    for (int k = 0; k < kHid; ++k) axpy_row<kSig>(a[k], sW1 + k * kSig, h);
-    float4* h4 = reinterpret_cast<float4*>(h_out + row * kSig);
-#pragma unroll
-    for (int j = 0; j < kSig / 4; ++j)
-      h4[j] = make_float4(h[4 * j], h[4 * j + 1], h[4 * j + 2], h[4 * j + 3]);
+    for (int i = 0; i < kMR; ++i)
+      *reinterpret_cast<float2*>(Q + (tr + kRG * i) * kSA + 2 * tc) =
+          make_float2(hacc[i][0], hacc[i][1]);
+    group_sync(g);
 
-    // ---- rgb net: r = relu(sh @ V0[:16] + h @ V0[16:]) ---------------------
-    float r[kHid];
+    // h leaves as 16-B stores, 4 a row
 #pragma unroll
-    for (int j = 0; j < kHid; ++j) r[j] = 0.f;
-    const float4* s4 = reinterpret_cast<const float4*>(sh + row * kSh);
-#pragma unroll
-    for (int i = 0; i < kSh / 4; ++i) {
-      float4 s = s4[i];
-      axpy_row<kHid>(s.x, sV0 + (4 * i + 0) * kHid, r);
-      axpy_row<kHid>(s.y, sV0 + (4 * i + 1) * kHid, r);
-      axpy_row<kHid>(s.z, sV0 + (4 * i + 2) * kHid, r);
-      axpy_row<kHid>(s.w, sV0 + (4 * i + 3) * kHid, r);
+    for (int c = gt; c < kRows * kSig / 4; c += kGroupThreads) {
+      const int r = c >> 2, q = c & 3;
+      if (row0 + r < n)
+        reinterpret_cast<float4*>(h_out + (row0 + r) * kSig)[q] =
+            *reinterpret_cast<const float4*>(Q + r * kSA + 4 * q);
     }
-#pragma unroll
-    for (int k = 0; k < kSig; ++k)
-      axpy_row<kHid>(h[k], sV0 + (kSh + k) * kHid, r);
-#pragma unroll
-    for (int j = 0; j < kHid; ++j) r[j] = fmaxf(r[j], 0.f);
 
-    // ---- r2 = relu(r @ V1); rgb = r2 @ V2 ----------------------------------
-    float r2[kHid];
+    // ---- rgb net: P = relu(sh @ V0[:16] + h @ V0[16:]) -------------------
+    zero_acc(acc);
+    gemm<kSh, kSS, kHid, 4, 2>(acc, in + kRows * kSF, sw + kOffV0, tr, tc);
+    gemm<kSig, kSA, kHid, 4, 2>(acc, Q, sw + kOffV0 + kSh * kHid, tr, tc);
+    write_relu(P, acc, tr, tc);
+    group_sync(g);
+    // ---- Q = relu(P @ V1) --------------------------------------------------
+    zero_acc(acc);
+    gemm<kHid, kSA, kHid, 4, 2>(acc, P, sw + kOffV1, tr, tc);
+    write_relu(Q, acc, tr, tc);
+    group_sync(g);
+    // ---- rgb = Q @ V2: two threads a row, each half of k ------------------
+    {
+      const int r = gt >> 1, half = gt & 1;
+      const float* a = Q + r * kSA + (kHid / 2) * half;
+      const float* w = sw + kOffV2 + (kHid / 2) * 4 * half;
+      float c0 = 0.f, c1 = 0.f, c2 = 0.f;
 #pragma unroll
-    for (int j = 0; j < kHid; ++j) r2[j] = 0.f;
+      for (int k = 0; k < kHid / 2; k += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(a + k);
 #pragma unroll
-    for (int k = 0; k < kHid; ++k) axpy_row<kHid>(r[k], sV1 + k * kHid, r2);
-    float c0 = 0.f, c1 = 0.f, c2 = 0.f;
-#pragma unroll
-    for (int k = 0; k < kHid; ++k) {
-      const float rk = fmaxf(r2[k], 0.f);
-      c0 = fmaf(rk, sV2[k * kRgb + 0], c0);
-      c1 = fmaf(rk, sV2[k * kRgb + 1], c1);
-      c2 = fmaf(rk, sV2[k * kRgb + 2], c2);
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 wv = *reinterpret_cast<const float4*>(w + 4 * (k + kk));
+          const float xk = lane_of(x, kk);
+          c0 = fmaf(xk, wv.x, c0);
+          c1 = fmaf(xk, wv.y, c1);
+          c2 = fmaf(xk, wv.z, c2);
+        }
+      }
+      c0 += __shfl_xor_sync(0xffffffffu, c0, 1);
+      c1 += __shfl_xor_sync(0xffffffffu, c1, 1);
+      c2 += __shfl_xor_sync(0xffffffffu, c2, 1);
+      if (half == 0) {
+        P[r * kRgb + 0] = c0;
+        P[r * kRgb + 1] = c1;
+        P[r * kRgb + 2] = c2;
+      }
     }
-    float* o = rgb_out + row * kRgb;
-    o[0] = c0;
-    o[1] = c1;
-    o[2] = c2;
+    group_sync(g);
+    store_rgb(rgb_out, P, row0, n, gt);
+    // the loop's first barrier guards P and this stage before reuse
   }
 }
 
@@ -203,7 +396,6 @@ constexpr int kTile = 16;          // rows of one MMA tile
 constexpr int kS32 = 32 + 8;       // smem row stride (bf16) of a K = 32 matrix
 constexpr int kS64 = 64 + 8;       // smem row stride (bf16) of a K = 64 matrix
 constexpr int kHS = kSig + 4;      // smem row stride (f32) of the h staging
-constexpr int kMaxDevices = 64;
 
 // Transposed bf16 weights (row n holds output n's K inputs in slot order)
 // and each warp's output staging.
@@ -486,14 +678,46 @@ fused_head_tc_kernel(const TF* __restrict__ feats, const float* __restrict__ sh,
   }
 }
 
+// Blocks of the f32 kernel that fit on the current device at once (one an
+// SM), asked once per device; the kernel's dynamic shared memory is
+// allowed first.
+cudaError_t f32_resident(int* blocks) {
+  static int resident[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(fused_head_f32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kF32Smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fused_head_f32_kernel, kF32Threads, kF32Smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm == 0) return cudaErrorInvalidConfiguration;
+    resident[dev] = sms * per_sm;
+  }
+  *blocks = resident[dev];
+  return cudaSuccess;
+}
+
 cudaError_t launch_f32(const float* feats, const float* sh, const float* w0,
                        const float* w1, const float* v0, const float* v1,
                        const float* v2, float* h, float* rgb, int64_t n,
                        cudaStream_t stream) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  fused_head_f32_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      feats, sh, w0, w1, v0, v1, v2, h, rgb, n);
+  int resident = 0;
+  cudaError_t err = f32_resident(&resident);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (n + kRows - 1) / kRows;
+  int64_t blocks = (tiles + kGroups - 1) / kGroups;
+  if (blocks > resident) blocks = resident;
+  fused_head_f32_kernel<<<static_cast<unsigned>(blocks), kF32Threads,
+                          kF32Smem, stream>>>(feats, sh, w0, w1, v0, v1, v2,
+                                              h, rgb, n);
   return cudaGetLastError();
 }
 
@@ -551,6 +775,25 @@ extern "C" int arnerf_fused_head_forward(
                      h, rgb, n, s);
   }
   return static_cast<int>(err);
+}
+
+// The f32 kernel's launch shape on the current device: out[0] threads a
+// block, out[1] dynamic shared memory bytes, out[2] registers a thread,
+// out[3] resident blocks, out[4] rows of a tile, out[5] rows of one wave
+// (resident blocks x groups x rows a tile). Returns a cudaError_t.
+extern "C" int arnerf_fused_head_f32_shape(int64_t* out) {
+  int resident = 0;
+  cudaError_t err = f32_resident(&resident);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fused_head_f32_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = kF32Threads;
+  out[1] = kF32Smem;
+  out[2] = attr.numRegs;
+  out[3] = resident;
+  out[4] = kRows;
+  out[5] = static_cast<int64_t>(resident) * kGroups * kRows;
+  return 0;
 }
 
 extern "C" const char* arnerf_cuda_error_string(int err) {

@@ -10,7 +10,9 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  spill.
   2. kernels   - each kernel against its plain PyTorch version on the card,
                  timed beside its bound and a library yardstick: the fused
-                 head (forward, and its autograd gradient at 2^18 rows) and
+                 head (forward, and its autograd gradient at 2^18 rows; f32
+                 also at the bake's 2^20-row launch, its launch shape, and
+                 within F64_GATE of float64 where TF32 must not be) and
                  the segment sum in pack and exact mode at the training
                  step's shapes, on the real hash mapping of uniform
                  positions in the hash-grid backward's grouped layout.
@@ -222,6 +224,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PARITY_ROWS = (1 << 21) + 3     # the 2M-sample render round, ragged
 MAIN_PATH_ROWS = 1 << 18        # ngp_forward_chunked's chunk: one launch
+# the bake's launch: _ngp_bake_setup's chunk (rendering_baked.py:445) on the
+# card, 32,768 voxels x 32 directions (stochastic, 16 levels)
+BAKE_ROWS = 1 << 20
+F64_GATE = 1e-6                 # f32 head vs float64, relative Frobenius
 TRAIN_SAMPLES = 8192 * 32       # batch x sample budget: one training step
 SMOKE_DIR = ROOT / "build" / "arnerf_tpu_torch" / "smoke"
 INSERT_FRAMES = 12              # object-move frames through the server
@@ -379,6 +385,65 @@ def head_kernel_numbers(dtype_name, rows, w, dev):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms}
+
+
+def f32_head_shape():
+    """The f32 head kernel's launch shape on this card, from its library:
+    threads a block, dynamic shared memory bytes, registers a thread,
+    resident blocks, rows of a tile, rows of one wave."""
+    import ctypes
+    from arnerf_tpu_torch.ops import fused_head as fh
+    lib = fh._library()
+    fn = lib.arnerf_fused_head_f32_shape
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int64 * 6)()
+    err = fn(ctypes.addressof(out))
+    if err:
+        raise RuntimeError("arnerf_fused_head_f32_shape: "
+                           + lib.arnerf_cuda_error_string(err).decode())
+    return dict(zip(("threads", "smem_bytes", "registers", "blocks",
+                     "tile_rows", "wave_rows"), out))
+
+
+def head_float64_gate(rows, w, dev):
+    """float32 means float32: the f32 kernel against the same head in
+    float64 (`_library_head` on float64 copies of the inputs), within
+    F64_GATE relative Frobenius on h and rgb. The control, the head in
+    TF32 (`_library_head` with allow_tf32), must exceed the bound, or the
+    gate could not tell f32 from TF32."""
+    import torch
+    from arnerf_tpu_torch.ops import fused_head as fh
+    g = torch.Generator(device=dev).manual_seed(rows + 2)
+    feats = torch.randn((rows, 32), generator=g, device=dev) * 0.5
+    sh = torch.randn((rows, 16), generator=g, device=dev) * 0.5
+    want = _library_head(feats.double(), sh.double(),
+                         tuple(x.double() for x in w))
+
+    def rel(got):
+        return {name: float(torch.linalg.norm(a.double() - b)
+                            / torch.linalg.norm(b))
+                for name, a, b in zip(("h", "rgb"), got, want)}
+
+    kernel = rel(fh.fused_field_head(feats, sh, w, torch.float32))
+    plain = rel(fh._head_torch(feats, sh, w, torch.float32))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = rel(_library_head(feats, sh, w))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rows": rows, "bound": F64_GATE, "kernel": kernel,
+           "plain": plain, "tf32_control": tf32}
+    print(f"fused_head[float32] vs float64 at {rows} rows (relative "
+          f"Frobenius): {out}", flush=True)
+    if max(kernel.values()) > F64_GATE:
+        raise AssertionError(f"the f32 head departs from float64 by more "
+                             f"than {F64_GATE}: {kernel}")
+    if max(tf32.values()) <= F64_GATE:
+        raise AssertionError(f"the TF32 control is within {F64_GATE} of "
+                             f"float64 ({tf32}): the gate cannot tell f32 "
+                             f"from TF32")
+    return out
 
 
 def head_gradient_check(rows, w, dev):
@@ -1188,11 +1253,12 @@ def reference_check(ckpt, dev):
         raise AssertionError("card and CPU renders disagree")
 
 
-def profile_view(ckpt, dev):
-    """Where one 800x800 bf16 view's time goes: wall time, device busy time
-    (sum of kernel durations, one stream), the render layers' spans
-    (rendering.py's record_function ranges) and the top kernels. Reports
-    "not measured" if the profiler sees no device activity."""
+def profile_view(ckpt, dev, dtype_name="bfloat16"):
+    """Where one 800x800 view's time goes (bf16, or f32 as eval renders by
+    default): wall time, device busy time (sum of kernel durations, one
+    stream), the render layers' spans (rendering.py's record_function
+    ranges) and the top kernels, the fused head's among them. Reports "not
+    measured" if the profiler sees no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1201,7 +1267,7 @@ def profile_view(ckpt, dev):
     from arnerf_tpu_torch.models import NGPConfig, grid_state_init
     from arnerf_tpu_torch.rendering import render_test
     from arnerf_tpu_torch.training.ckpt import load_ckpt
-    cfg = NGPConfig(scale=0.5, fused_head=True, compute_dtype="bfloat16")
+    cfg = NGPConfig(scale=0.5, fused_head=True, compute_dtype=dtype_name)
     params, state, _ = load_ckpt(ckpt, grid_template=grid_state_init(cfg, dev),
                                  device=dev)
     ds = SyntheticDataset(split="test", downsample=6.25, read_meta=False)
@@ -1224,13 +1290,14 @@ def profile_view(ckpt, dev):
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA and e.name not in spans]
     if not kernels:
-        print(f"profile: wall {wall_ms:.1f} ms; device time not measured "
-              f"(the profiler recorded no device events)", flush=True)
+        print(f"profile[{dtype_name} view]: wall {wall_ms:.1f} ms; device "
+              f"time not measured (the profiler recorded no device events)",
+              flush=True)
         return
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    print(f"profile: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"(idle share {1 - busy_ms / wall_ms:.3f}), {len(kernels)} device "
-          f"kernels/copies in the view", flush=True)
+    print(f"profile[{dtype_name} view]: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
+          f"{len(kernels)} device kernels/copies in the view", flush=True)
     for e in prof.key_averages():
         # each span is listed twice: its host range (kept; its device time
         # is the sum of the kernels it launched) and its GPU-side annotation
@@ -1239,6 +1306,40 @@ def profile_view(ckpt, dev):
                   f"device {e.device_time_total / 1e3:.1f} ms (kernel sum), "
                   f"calls {e.count}")
     _print_kernels(kernels, 12)
+
+
+def profile_bake(ckpt, dev):
+    """Where one 256^3 bake's time goes, as the eval entry point bakes on
+    the card (bake_ngp's defaults: stochastic, 32 directions, f32, 2^20
+    head rows a launch): the train phase's checkpoint traced, wall time,
+    device busy time and the top kernels, the f32 head's among them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from arnerf_tpu_torch.models import NGPConfig, grid_state_init
+    from arnerf_tpu_torch.rendering_baked import bake_ngp
+    from arnerf_tpu_torch.training.ckpt import load_ckpt
+    cfg = NGPConfig(scale=0.5, fused_head=True)
+    params, state, _ = load_ckpt(ckpt, grid_template=grid_state_init(cfg, dev),
+                                 device=dev)
+    bake_ngp(params, state, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bake_ngp(params, state, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, busy_ms = _busy(prof)
+    if not kernels:
+        print(f"profile[bake]: wall {wall_ms:.1f} ms; device time not "
+              f"measured (the profiler recorded no device events)",
+              flush=True)
+        return
+    print(f"profile[bake]: 256^3 stochastic bake, wall {wall_ms:.1f} ms, "
+          f"device busy {busy_ms:.1f} ms (idle share "
+          f"{1 - busy_ms / wall_ms:.3f}), {len(kernels)} device "
+          f"kernels/copies", flush=True)
+    _print_kernels(kernels, 8)
 
 
 def profile_baked_view(ckpt, dev):
@@ -3404,6 +3505,17 @@ def resume_phase(state):
 
 
 
+def _kernel_name(mangled):
+    """The last name of an Itanium-mangled function name (its
+    length-prefixed parts after _ZN), e.g. fused_head_f32_kernel."""
+    rest, names = re.sub(r"^_ZN?", "", mangled), []
+    while (m := re.match(r"(\d+)", rest)):
+        size = int(m.group(1))
+        names.append(rest[m.end():m.end() + size])
+        rest = rest[m.end() + size:]
+    return names[-1] if names else mangled
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3543,22 +3655,33 @@ def main() -> int:
         spills = []
         for name in build.KERNEL_SOURCES:
             log = build.library_path(name).with_suffix(".so.log")
+            fn = name
             for line in log.read_text().splitlines():
+                entry = re.search(r"Compiling entry function '(\w+)'", line)
+                if entry:
+                    fn = _kernel_name(entry.group(1))
                 if "registers" in line or "spill" in line:
-                    print(f"  ptxas[{name}]: {line.strip()}")
-                spills += [(name, int(b)) for b in re.findall(
+                    print(f"  ptxas[{name}:{fn}]: {line.strip()}")
+                spills += [(fn, int(b)) for b in re.findall(
                     r"(\d+) bytes spill", line) if int(b)]
         if spills:
             raise AssertionError(f"ptxas reports spills: {spills}")
 
     def kernel_phase():
         w = _head_weights(dev)
-        for dtype_name in ("bfloat16", "float32"):
-            for rows in (PARITY_ROWS, MAIN_PATH_ROWS):
+        # the f32 head also at the bake's launch
+        for dtype_name, sizes in (
+                ("bfloat16", (PARITY_ROWS, MAIN_PATH_ROWS)),
+                ("float32", (PARITY_ROWS, MAIN_PATH_ROWS, BAKE_ROWS))):
+            for rows in sizes:
                 nums = head_kernel_numbers(dtype_name, rows, w, dev)
                 print(f"fused_head[{dtype_name}] rows {rows}: {nums}",
                       flush=True)
                 state[(dtype_name, rows)] = nums
+        state["f32_shape"] = f32_head_shape()
+        print(f"fused_head[float32] launch shape: {state['f32_shape']}",
+              flush=True)
+        state["f32_float64"] = head_float64_gate(MAIN_PATH_ROWS, w, dev)
         head_gradient_check(MAIN_PATH_ROWS, w, dev)
         for mode in ("pack", "exact"):
             idx, vals, rows, n_levels = _segment_updates(mode, dev)
@@ -3595,8 +3718,11 @@ def main() -> int:
     phase("hdr", lambda: hdr_phase(state, dev))
     phase("viewer", lambda: viewer_phase(state, dev))
     try:   # measurements, not checks: their absence fails nothing
-        profile_view(state.get("ckpt") or write_smoke_checkpoint(dev), dev)
+        ckpt = state.get("ckpt") or write_smoke_checkpoint(dev)
+        profile_view(ckpt, dev)
+        profile_view(ckpt, dev, "float32")
         if "train_ckpt" in state:
+            profile_bake(state["train_ckpt"], dev)
             profile_baked_view(state["train_ckpt"], dev)
         if "trainer" in state:
             profile_train_block(state["trainer"])
@@ -3679,18 +3805,27 @@ def main() -> int:
         # startup bakes and its live preview's delta bake
         for k, v in state.get("viewer_launches", {}).items():
             by_path[k] = 0 if bf16 else v
-        kernels.append({
+        sizes = [r for r in (MAIN_PATH_ROWS, BAKE_ROWS, PARITY_ROWS)
+                 if (dtype_name, r) in state]
+        entry = {
             "name": f"fused_field_head[{dtype_name}]", "route": "cuda",
             "source": "arnerf_tpu_torch/csrc/fused_head.cu",
             "replaces": "arnerf_tpu/ops/fused_head.py:42",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(state[(dtype_name, r)]["max_abs_err"]
-                               for r in (PARITY_ROWS, MAIN_PATH_ROWS)
-                               if (dtype_name, r) in state),
+                               for r in sizes),
             **{k: nums[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms",
                                     "rel_frobenius")},
-            "rows": nums["rows"]})
+            "rows": nums["rows"]}
+        if not bf16:   # the serving paths' sizes, the float64 gate
+            entry["by_rows"] = {
+                str(r): {k: state[(dtype_name, r)][k] for k in (
+                    "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "max_abs_err")} for r in sizes}
+            entry["float64_gate"] = state.get("f32_float64")
+            entry["launch_shape"] = state.get("f32_shape")
+        kernels.append(entry)
     for mode in ("pack", "exact"):
         nums = state.get(("segment_sum", mode))
         if nums is None:

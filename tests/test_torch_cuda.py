@@ -35,8 +35,24 @@ def _inputs(n, dev, seed=1):
             torch.randn((n, 16), generator=g).mul(0.5).to(dev))
 
 
-@pytest.mark.parametrize("n", [1, 127, 2051, (1 << 18) + 5])
+def _f32_rows(edge):
+    """Rows at an edge of the f32 kernel's tiling on this card, from its
+    library: "tile-1" .. "wave+1", where a wave is one tile for every
+    row-tile group of every resident block."""
+    import chip_smoke
+    shape = chip_smoke.f32_head_shape()
+    unit, delta = edge[:4], edge[4:]
+    return shape[f"{unit}_rows"] + int(delta or 0)
+
+
+@pytest.mark.parametrize("n", [
+    1, 127, 2051, (1 << 18) + 5,
+    # the tiling's edges: one tile -1, +0, +1; one wave -1, +1; the bake's
+    # launch; the 2M render round, ragged
+    "tile-1", "tile", "tile+1", "wave-1", "wave+1", 1 << 20, (1 << 21) + 3])
 def test_kernel_matches_plain_f32(dev, n):
+    if isinstance(n, str):
+        n = _f32_rows(n)
     w = _weights(dev)
     feats, sh = _inputs(n, dev)
     t_fused.reset_launches()
@@ -45,6 +61,33 @@ def test_kernel_matches_plain_f32(dev, n):
     assert t_fused.launches == 1
     h_p, rgb_p = t_fused._head_torch(feats, sh, w, torch.float32)
     torch.testing.assert_close(h, h_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(rgb, rgb_p, rtol=1e-4, atol=1e-5)
+
+
+def test_f32_head_zero_sh(dev):
+    """sh = 0: rgb comes from h @ V0[16:] alone, so a V0 row staged in the
+    wrong half cannot hide behind the sh terms."""
+    w = _weights(dev, 11)
+    feats, sh = _inputs(4099, dev, 12)
+    sh = torch.zeros_like(sh)
+    h, rgb = t_fused.fused_field_head(feats, sh, w, torch.float32)
+    h_p, rgb_p = t_fused._head_torch(feats, sh, w, torch.float32)
+    assert float(rgb_p.abs().max()) > 0
+    torch.testing.assert_close(h, h_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(rgb, rgb_p, rtol=1e-4, atol=1e-5)
+
+
+def test_f32_head_dead_sigma_layer(dev):
+    """W0 >= 0 and feats < 0: relu(feats @ W0) is 0 on every row, so h must
+    be exactly 0 and rgb comes from sh @ V0[:16] alone."""
+    w = list(_weights(dev, 13))
+    w[0] = w[0].abs()
+    feats, sh = _inputs(4099, dev, 14)
+    feats = -feats.abs() - 1e-3
+    h, rgb = t_fused.fused_field_head(feats, sh, tuple(w), torch.float32)
+    h_p, rgb_p = t_fused._head_torch(feats, sh, tuple(w), torch.float32)
+    assert float(h.abs().max()) == 0.0
+    assert float(rgb_p.abs().max()) > 0
     torch.testing.assert_close(rgb, rgb_p, rtol=1e-4, atol=1e-5)
 
 

@@ -531,6 +531,16 @@ class NGPInsertor:
 
     # -- shadows (reference main.py:419-519) -------------------------------
 
+    def enlarge_range(self, bbox, scale):
+        """[[row0, col0], [row1, col1]] grown by `scale` of its size on
+        each side, clipped to the screen."""
+        dH = bbox[1][0] - bbox[0][0]
+        dW = bbox[1][1] - bbox[0][1]
+        return [[int(max(0, bbox[0][0] - scale * dH)),
+                 int(max(0, bbox[0][1] - scale * dW))],
+                [int(min(self.H, bbox[1][0] + scale * dH)),
+                 int(min(self.W, bbox[1][1] + scale * dW))]]
+
     def _frame_points(self, rays_o, rays_d, rgb, depth_sur):
         return (rays_o.reshape(rgb.shape) + rays_d.reshape(rgb.shape)
                 * depth_sur).reshape(-1, 3)

@@ -63,10 +63,69 @@ def fresnel_schlick_roughness(F0, NdotV, rough):
                  - F0) * (1.0 - NdotV) ** 5
 
 
+def geometry_schlick_ggx(NdotV, roughness):
+    r = roughness + 1.0
+    k = r * r / 8.0
+    return NdotV / (NdotV * (1.0 - k) + k)
+
+
 def geometry_blender(NdotV, roughness):
     a = roughness ** 2
     sqr = a * torch.clamp(1.0 / NdotV ** 2 - 1.0, min=0.0)
     return 0.5 * (torch.sqrt(1.0 + sqr) - 1.0)
+
+
+# ---------------------------------------------------------------------------
+# texture sampling (torch grid_sample semantics: align_corners=False, border)
+# ---------------------------------------------------------------------------
+
+def tex2d(tex, samples):
+    """Bilinear sample. tex: (H, W, C); samples: (x, 2) in [-1, 1] as
+    (x_coord -> W axis, y_coord -> H axis)."""
+    H, W = tex.shape[:2]
+    gx = ((samples[:, 0] + 1.0) * W - 1.0) / 2.0
+    gy = ((samples[:, 1] + 1.0) * H - 1.0) / 2.0
+
+    def fetch(iy, ix):
+        return tex[torch.clamp(iy, 0, H - 1), torch.clamp(ix, 0, W - 1)]
+
+    x0 = torch.floor(gx).to(torch.int32)
+    y0 = torch.floor(gy).to(torch.int32)
+    fx = (gx - x0)[:, None]
+    fy = (gy - y0)[:, None]
+    return ((1 - fx) * (1 - fy) * fetch(y0, x0)
+            + fx * (1 - fy) * fetch(y0, x0 + 1)
+            + (1 - fx) * fy * fetch(y0 + 1, x0)
+            + fx * fy * fetch(y0 + 1, x0 + 1))
+
+
+def tex3d(vol, samples):
+    """Trilinear sample. vol: (D, H, W, C); samples: (x, 3) as
+    (x->W, y->H, z->D) in [-1, 1]."""
+    D, H, W = vol.shape[:3]
+    gx = ((samples[:, 0] + 1.0) * W - 1.0) / 2.0
+    gy = ((samples[:, 1] + 1.0) * H - 1.0) / 2.0
+    gz = ((samples[:, 2] + 1.0) * D - 1.0) / 2.0
+
+    def fetch(iz, iy, ix):
+        return vol[torch.clamp(iz, 0, D - 1), torch.clamp(iy, 0, H - 1),
+                   torch.clamp(ix, 0, W - 1)]
+
+    x0 = torch.floor(gx).to(torch.int32)
+    y0 = torch.floor(gy).to(torch.int32)
+    z0 = torch.floor(gz).to(torch.int32)
+    fx = (gx - x0)[:, None]
+    fy = (gy - y0)[:, None]
+    fz = (gz - z0)[:, None]
+    out = 0.0
+    for dz in (0, 1):
+        wz = fz if dz else 1 - fz
+        for dy in (0, 1):
+            wy = fy if dy else 1 - fy
+            for dx in (0, 1):
+                wx = fx if dx else 1 - fx
+                out = out + wz * wy * wx * fetch(z0 + dz, y0 + dy, x0 + dx)
+    return out
 
 
 # ---------------------------------------------------------------------------

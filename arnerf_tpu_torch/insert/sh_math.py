@@ -19,6 +19,10 @@ def normalize(v, eps=0.0):
     return v / (torch.linalg.norm(v, dim=-1, keepdim=True) + eps)
 
 
+def normalize_eps(v, eps=1e-6):
+    return normalize(v, eps)
+
+
 def sh9_basis(d):
     """d: (..., 3) unit dirs -> (..., 9) basis values
     (reference insert_utils.py:102-127)."""
@@ -210,3 +214,13 @@ def read_ply(path):
     pts = data[:, :3]
     rgbs = data[:, 3:6] / 255.0 if data.shape[1] >= 6 else None
     return pts, rgbs
+
+
+def pts2normal(pts):
+    """Screen-space normals from a point map (b, h, w, 3)
+    (reference insert_utils.py:51-59)."""
+    dy = pts[:, :-1] - pts[:, 1:]
+    dy = torch.cat([dy[:, :1], dy], 1)
+    dx = pts[:, :, :-1] - pts[:, :, 1:]
+    dx = torch.cat([dx[:, :, :1], dx], 2)
+    return normalize(torch.linalg.cross(dy, dx, dim=-1))

@@ -115,6 +115,22 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  stochastic, of the CPU's bake on both (the same rounds;
                  1e-4 at all but RENDER_FLIP_PIXELS pixels a view, where a
                  threshold decision may flip on an ulp).
+  analytic - the analytic object-only field baked with no training
+                 (bake_analytic_field, the JAX bench's baked object frame):
+                 the 256^3 bake on the card (seconds, occupied voxels,
+                 occupancy under 10 %, the tight AABB under 0.95 of the
+                 cube, 0 fused-head launches), the same bake at 64^3 on the
+                 card and on the CPU with the baked phase's gates, the
+                 800x800 frame bench.py times (its test pose 0,
+                 render_baked with T_threshold 1e-2 and colour window 4:
+                 median ms/view of 8 after a warm one, CUDA events; rounds
+                 per bucket) and its PSNR at 256x256 against the dense
+                 oracle (> 24 dB). Then ray_aabb_intersect and
+                 ray_sphere_intersect (2^16 seeded rays x 64 boxes or 16
+                 spheres, max_hits 4: counts equal, t within 1e-5, indices
+                 equal but for near ties) and the Reinhard tonemap on an
+                 800x800 lognormal frame (1e-5, equal NaN masks), card vs
+                 CPU.
   5. reference - a 64x64 view rendered in f32, and one f32 training step at
                  a small size, on the card (kernels) and on the CPU (plain
                  versions) must agree; the compositing's per-ray totals
@@ -253,6 +269,11 @@ COLMAP_EVAL_ARGV = ["--downsample", "0.5"]
 BAKE_DIRS = 32                  # bake_ngp's quadrature directions
 BAKE_CHECK_RES = 64             # card-vs-CPU bake (B^3 voxels)
 RENDER_FLIP_PIXELS = 4          # of a 64x64 view (baked_card_vs_cpu)
+ANALYTIC_RES = 256              # bake_analytic_field's default, as bench.py
+ANALYTIC_FRAMES = 8             # timed 800x800 frames after a warm one
+INTERSECT_RAYS = 1 << 16        # seeded rays of the intersection check
+INTERSECT_TOL = 1e-5
+REINHARD_TOL = 1e-5
 EXR_FIXTURES = ROOT / "tests" / "data" / "exr"
 HDR_DIR = SMOKE_DIR / "hdr"
 HDR_EXR_VIEWS, HDR_EXR_WH = 64, (800, 600)   # colmap_exr: 56 train, 8 test
@@ -809,28 +830,14 @@ def run_train(state):
 def baked_card_vs_cpu(ckpt, dev):
     """The train phase's checkpoint baked at BAKE_CHECK_RES^3 with
     stochastic corners on the card (fused head, f32) and on the CPU (plain
-    versions): rows to 1e-4 of their largest entry, every code (sigma
-    bricks, int8 colours) within 1, the row index equal. Then the CPU's
-    bake renders the 4 test views at 64x64 on both, trilinear and
-    stochastic (bricks) from the same key: rounds equal, and rgb, opacity
-    and depth to 1e-4 at every pixel but at most RENDER_FLIP_PIXELS a
-    view. Those few may flip: the renderer takes discrete decisions on
-    float sums and exp (a bucket's colour voxel rounded from its mean
-    depth, a sample's opacity bucket, its inclusion above T_threshold),
-    and there the card's and the CPU's values differ by an ulp."""
+    versions), held together by bakes_card_vs_cpu."""
     import torch
-    from arnerf_tpu_torch.datasets.ray_utils import get_rays
-    from arnerf_tpu_torch.datasets.synthetic import (SyntheticConfig,
-                                                     SyntheticDataset)
     from arnerf_tpu_torch.models import NGPConfig, grid_state_init
-    from arnerf_tpu_torch.ops import threefry
-    from arnerf_tpu_torch.rendering_baked import (BakedField, bake_ngp,
-                                                  render_baked)
+    from arnerf_tpu_torch.rendering_baked import bake_ngp
     from arnerf_tpu_torch.training.ckpt import load_ckpt
-    sides = (("card", dev), ("cpu", torch.device("cpu")))
     cfg = NGPConfig(scale=0.5, fused_head=True)
     bakes, secs = {}, {}
-    for side, d in sides:
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
         params, state, _ = load_ckpt(ckpt, grid_template=grid_state_init(
             cfg, d), device=d)
         t0 = time.perf_counter()
@@ -838,6 +845,29 @@ def baked_card_vs_cpu(ckpt, dev):
                                resolution=BAKE_CHECK_RES, stoch=True)
         torch.cuda.synchronize()
         secs[side] = time.perf_counter() - t0
+    return bakes_card_vs_cpu("baked", "stochastic corners, f32", bakes,
+                             secs, cfg, dev)
+
+
+def bakes_card_vs_cpu(label, what, bakes, secs, cfg, dev):
+    """A BAKE_CHECK_RES^3 bake made on the card and on the CPU (`bakes`:
+    side -> BakedField, `secs`: side -> seconds): rows to 1e-4 of their
+    largest entry, every code (sigma bricks, int8 colours) within 1, the
+    row index equal. Then the CPU's bake renders the 4 test views at 64x64
+    on both, trilinear and stochastic (bricks) from the same key: rounds
+    equal, and rgb, opacity and depth to 1e-4 at every pixel but at most
+    RENDER_FLIP_PIXELS a view. Those few may flip: the renderer takes
+    discrete decisions on float sums and exp (a bucket's colour voxel
+    rounded from its mean depth, a sample's opacity bucket, its inclusion
+    above T_threshold), and there the card's and the CPU's values differ
+    by an ulp."""
+    import torch
+    from arnerf_tpu_torch.datasets.ray_utils import get_rays
+    from arnerf_tpu_torch.datasets.synthetic import (SyntheticConfig,
+                                                     SyntheticDataset)
+    from arnerf_tpu_torch.ops import threefry
+    from arnerf_tpu_torch.rendering_baked import BakedField, render_baked
+    sides = (("card", dev), ("cpu", torch.device("cpu")))
     g, c = bakes["card"], bakes["cpu"]
     rows_err = float((g.rows.cpu() - c.rows).abs().max()
                      / c.rows.abs().max())
@@ -850,9 +880,8 @@ def baked_card_vs_cpu(ckpt, dev):
     rows_err = max(rows_err, float((g_sc - c_sc).abs().max()
                                    / c_sc.abs().max()))
     same_index = bool(torch.equal(g.row_index.cpu(), c.row_index))
-    print(f"baked: card vs CPU bake at {BAKE_CHECK_RES}^3 (stochastic "
-          f"corners, f32): rows and colour scales max err / max "
-          f"{rows_err}, codes max diff "
+    print(f"{label}: card vs CPU bake at {BAKE_CHECK_RES}^3 ({what}): "
+          f"rows and colour scales max err / max {rows_err}, codes max diff "
           f"{code_err}, row index equal {same_index}, "
           f"{int(c.rows_q.shape[0]) - 1} voxels; seconds {secs}",
           flush=True)
@@ -875,7 +904,7 @@ def baked_card_vs_cpu(ckpt, dev):
                                           stats=stats[side])
             if not all(torch.isfinite(outs["card"][k]).all()
                        for k in ("rgb", "opacity", "depth")):
-                raise AssertionError(f"baked {interp}: non-finite render")
+                raise AssertionError(f"{label} {interp}: non-finite render")
             # per pixel: the largest error of rgb, opacity and depth
             px = torch.stack([(outs["card"][k].cpu() - outs["cpu"][k])
                               .abs().reshape(64 * 64, -1).amax(dim=1)
@@ -888,18 +917,18 @@ def baked_card_vs_cpu(ckpt, dev):
                 "flipped_max": float(px[flips].max()) if flips.any()
                 else 0.0,
                 "rounds": (stats["card"]["rounds"], stats["cpu"]["rounds"])})
-    print(f"baked: card vs CPU renders of the 4 test views at 64x64 of the "
+    print(f"{label}: card vs CPU renders of the 4 test views at 64x64 of the "
           f"CPU's bake (per view: the largest rgb, opacity and depth error "
           f"of the pixels within 1e-4, the pixels over it and their "
           f"largest error, rounds): {errs}", flush=True)
     if rows_err > 1e-4 or max(code_err.values()) > 1 or not same_index:
-        raise AssertionError("card and CPU bakes disagree")
+        raise AssertionError(f"{label}: card and CPU bakes disagree")
     for interp, views in errs.items():
         for e in views:
             if e["flipped"] > RENDER_FLIP_PIXELS \
                     or e["rounds"][0] != e["rounds"][1]:
-                raise AssertionError(f"card and CPU baked renders disagree "
-                                     f"({interp}): {e}")
+                raise AssertionError(f"{label}: card and CPU baked renders "
+                                     f"disagree ({interp}): {e}")
     return {"rows_err": rows_err, "code_err": code_err, "render": errs,
             "bake_seconds": secs}
 
@@ -930,6 +959,201 @@ def baked_phase(state, dev):
     if summary["psnr"] <= 17.0:
         raise AssertionError(f"baked validation PSNR {val['psnr']}")
     summary["card_vs_cpu"] = baked_card_vs_cpu(ckpt, dev)
+
+
+def analytic_phase(state, dev):
+    """The analytic object-only field baked with no training
+    (datasets/synthetic.py::bake_analytic_field, the JAX bench's baked
+    object frame, bench.py:566-622): the ANALYTIC_RES^3 bake on the card
+    (no fused head may launch; occupancy under 10 %, the tight AABB under
+    0.95 of the cube), the bake at BAKE_CHECK_RES^3 card vs CPU
+    (bakes_card_vs_cpu), the 800x800 frame bench.py times (test pose 0 of
+    its SyntheticConfig, render_baked with T_threshold 1e-2 and colour
+    window 4; one warm frame, then ANALYTIC_FRAMES timed with CUDA events)
+    and its 256x256 PSNR against render_analytic over the white background
+    (> 24 dB); then the intersections and Reinhard card vs CPU."""
+    import numpy as np
+    import torch
+    from arnerf_tpu_torch.datasets.ray_utils import (get_ray_directions,
+                                                     get_rays)
+    from arnerf_tpu_torch.datasets.synthetic import (SyntheticConfig,
+                                                     SyntheticDataset,
+                                                     bake_analytic_field,
+                                                     render_analytic)
+    from arnerf_tpu_torch.models import NGPConfig
+    from arnerf_tpu_torch.ops import fused_head as fh
+    from arnerf_tpu_torch.ops import threefry
+    from arnerf_tpu_torch.rendering_baked import render_baked
+    card = card_line().splitlines()[0]
+    scale = 0.5
+    head0 = fh.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    baked = bake_analytic_field(scale=scale, resolution=ANALYTIC_RES,
+                                device=dev)
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    head = fh.launches - head0
+    voxels = int(baked.rows_q.shape[0]) - 1
+    share = float((baked.sigma > 0).float().mean())
+    lo, hi = baked.aabb_lo.cpu(), baked.aabb_hi.cpu()
+    extent = float(((hi - lo) / (2 * scale)).max())
+    print(f"analytic: bake at {ANALYTIC_RES}^3 in {bake_s:.3f} s, "
+          f"{voxels} occupied voxels, occupancy {share:.5f}, AABB "
+          f"{lo.tolist()} .. {hi.tolist()} (extent {extent:.4f} of the "
+          f"cube), fused-head launches {head} [{card}]", flush=True)
+    if head != 0:
+        raise AssertionError(f"the analytic bake launched the fused head "
+                             f"{head} times")
+    if share >= 0.10 or extent >= 0.95:
+        raise AssertionError(f"the analytic bake is not sparse: occupancy "
+                             f"{share}, extent {extent}")
+    cfg = NGPConfig(scale=scale)
+    bakes, secs = {}, {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        bakes[side] = bake_analytic_field(scale=scale,
+                                          resolution=BAKE_CHECK_RES,
+                                          device=d)
+        torch.cuda.synchronize()
+        secs[side] = time.perf_counter() - t0
+    check = bakes_card_vs_cpu("analytic", "object only, 16 directions",
+                              bakes, secs, cfg, dev)
+
+    # bench.py's frame: its test split (n_test=2), pose 0, 800x800
+    scfg = SyntheticConfig(img_wh=(800, 800), n_test=2)
+    ds = SyntheticDataset(split="test", read_meta=False, config=scfg)
+    pose = torch.as_tensor(ds.poses[0], device=dev)
+    ro, rd = get_rays(torch.as_tensor(ds.directions, device=dev), pose)
+    keys = threefry.split(threefry.prng_key(11), ANALYTIC_FRAMES + 1)
+    stats = {}
+    render_baked(baked, None, ro, rd, cfg, key=keys[0], T_threshold=1e-2,
+                 color_window=4, img_wh=(800, 800), stats=stats)   # warm
+    ms = []
+    for k in keys[1:]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        render_baked(baked, None, ro, rd, cfg, key=k, T_threshold=1e-2,
+                     color_window=4, img_wh=(800, 800))
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    f = 0.5 * 256 / np.tan(0.5 * np.deg2rad(scfg.fov_deg))
+    K = np.array([[f, 0, 128], [0, f, 128], [0, 0, 1]], np.float32)
+    ro2, rd2 = get_rays(torch.as_tensor(get_ray_directions(256, 256, K),
+                                        device=dev), pose)
+    res = render_baked(baked, None, ro2, rd2, cfg,
+                       key=threefry.prng_key(3), T_threshold=1e-2,
+                       color_window=4, img_wh=(256, 256))
+    gt, _, _ = render_analytic(ro2, rd2 / torch.linalg.norm(
+        rd2, dim=-1, keepdim=True), scale, n_samples=512, object_only=True)
+    # the oracle composites over white; render_baked returns the raw colour
+    pred = torch.clamp(res["rgb"], 0, 1) + (1.0 - res["opacity"])[:, None]
+    mse = float(torch.mean((torch.clamp(pred, 0, 1) - gt) ** 2))
+    psnr = -10.0 * np.log10(max(mse, 1e-10))
+    summary = {"bake_seconds": bake_s, "voxels": voxels, "occupancy": share,
+               "aabb_extent": extent, "bake_head_launches": head,
+               "ms_per_view_800": float(np.median(ms)), "ms_800": ms,
+               "rounds_per_bucket": stats["rounds"],
+               "rays": stats["n_rays"], "aabb_rays": stats["n_aabb_hit"],
+               "psnr_256": psnr, "card_vs_cpu": check}
+    print(f"analytic: 800x800 frame (bench.py's pose 0) median "
+          f"{summary['ms_per_view_800']:.3f} ms/view over {len(ms)} (CUDA "
+          f"events) {ms}; rounds per bucket {stats['rounds']}; "
+          f"{stats['n_aabb_hit']} of {stats['n_rays']} rays hit the AABB; "
+          f"PSNR at 256x256 against the oracle {psnr:.3f} dB [{card}]",
+          flush=True)
+    summary["intersect"] = intersect_card_vs_cpu(dev, card)
+    summary["reinhard"] = reinhard_card_vs_cpu(dev, card)
+    state["analytic_summary"] = summary
+    print(f"analytic summary: {summary}", flush=True)
+    if not psnr > 24.0:
+        raise AssertionError(f"analytic baked object PSNR {psnr} dB")
+
+
+def intersect_card_vs_cpu(dev, card):
+    """ray_aabb_intersect (INTERSECT_RAYS seeded rays x 64 boxes) and
+    ray_sphere_intersect (x 16 spheres), max_hits 4, on the card and on
+    the CPU: counts equal, t within INTERSECT_TOL, indices equal except
+    where the CPU's t1 of the two swapped shapes lie within INTERSECT_TOL
+    of each other (a near tie the two may order either way). Many rays
+    start inside several boxes (t1 = 0 ties, kept in index order by the
+    stable sort)."""
+    import numpy as np
+    import torch
+    from arnerf_tpu_torch.ops import intersection
+    rng = np.random.default_rng(0)
+    n = INTERSECT_RAYS
+    o = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cases = {
+        "aabb": (intersection.ray_aabb_intersect,
+                 rng.uniform(-1, 1, (64, 3)).astype(np.float32),
+                 rng.uniform(0.05, 0.3, (64, 3)).astype(np.float32)),
+        "sphere": (intersection.ray_sphere_intersect,
+                   rng.uniform(-1, 1, (16, 3)).astype(np.float32),
+                   rng.uniform(0.1, 0.5, 16).astype(np.float32))}
+    out = {}
+    for kind, (fn, c, size) in cases.items():
+        args = [torch.from_numpy(x) for x in (o, d, c, size)]
+        cpu = fn(*args, 4)
+        gpu_args = [x.to(dev) for x in args]
+        g = [x.cpu() for x in fn(*gpu_args, 4)]
+        ms = _time_ms(lambda: fn(*gpu_args, 4), 20)
+        # the CPU's t1 of every (ray, shape) hit, from all hits in order
+        V = c.shape[0]
+        _, t_all, i_all = fn(*args, V)
+        t1 = torch.full((n, V + 1), -1.0)
+        t1.scatter_(1, torch.where(i_all >= 0, i_all, V).long(),
+                    t_all[..., 0])
+        mism = g[2] != cpu[2]
+        ig, ic = g[2][mism].long(), cpu[2][mism].long()
+        rows = mism.nonzero()[:, 0]
+        tie_gap = (t1[rows, ig] - t1[rows, ic]).abs()
+        ties_ok = bool(((ig >= 0) & (ic >= 0)).all()
+                       and (tie_gap <= INTERSECT_TOL).all())
+        res = {"counts_equal": bool(torch.equal(g[0], cpu[0])),
+               "t_err": float((g[1] - cpu[1]).abs().max()),
+               "index_swaps": int(mism.sum()), "swaps_are_ties": ties_ok,
+               "hits": int(cpu[0].sum()),
+               "rays_inside_two": int(((cpu[1][..., 0] == 0).sum(1) > 1)
+                                      .sum()),
+               "ms": ms}
+        print(f"analytic: ray_{kind}_intersect card vs CPU, {n} rays x "
+              f"{V} shapes, max_hits 4: {res} [{card}]", flush=True)
+        if not (res["counts_equal"] and res["t_err"] <= INTERSECT_TOL
+                and ties_ok):
+            raise AssertionError(f"ray_{kind}_intersect: card and CPU "
+                                 f"disagree: {res}")
+        out[kind] = res
+    return out
+
+
+def reinhard_card_vs_cpu(dev, card):
+    """tonemapping_complex_reinhard on an 800x800 lognormal HDR frame
+    (sigma 2) on the card and on the CPU: the same NaN mask, and within
+    REINHARD_TOL on the finite pixels."""
+    import numpy as np
+    import torch
+    from arnerf_tpu_torch.insert.tonemapping import \
+        tonemapping_complex_reinhard
+    im = torch.from_numpy(np.exp(np.random.default_rng(3).normal(
+        0, 2, (800, 800, 3))).astype(np.float32))
+    cpu = tonemapping_complex_reinhard(im)
+    g_im = im.to(dev)
+    g = tonemapping_complex_reinhard(g_im).cpu()
+    ms = _time_ms(lambda: tonemapping_complex_reinhard(g_im), 10)
+    fin = torch.isfinite(cpu)
+    res = {"same_nan_mask": bool(torch.equal(fin, torch.isfinite(g))),
+           "max_err": float((g[fin] - cpu[fin]).abs().max()),
+           "non_finite": int((~fin).sum()), "ms": ms}
+    print(f"analytic: Reinhard card vs CPU at 800x800: {res} [{card}]",
+          flush=True)
+    if not (res["same_nan_mask"] and res["max_err"] <= REINHARD_TOL):
+        raise AssertionError(f"Reinhard: card and CPU disagree: {res}")
+    return res
 
 
 def lpips_card_vs_cpu(trainer, dev):
@@ -3713,6 +3937,7 @@ def main() -> int:
     phase("resume", lambda: resume_phase(state))
     phase("real_updates", lambda: run_real_updates(state, dev))
     phase("baked", lambda: baked_phase(state, dev))
+    phase("analytic", lambda: analytic_phase(state, dev))
     phase("reference", reference_phase)
     phase("captures", lambda: captures_phase(state, dev))
     phase("hdr", lambda: hdr_phase(state, dev))

@@ -1,9 +1,10 @@
 """The port's baked renderer (arnerf_tpu_torch/rendering_baked.py) against
 the JAX package's on the CPU.
 
-Bake: the analytic oracle (the same JAX field called by both bakes) and a
+Bake: the analytic oracle (the same JAX field called by both bakes), a
 tiny JAX-initialised NGP at B = 32, single- and multi-cascade, exact and
-stochastic corners. Floats (rows, sigma, the colour scales) to 1e-5 of the
+stochastic corners, and bake_analytic_field (each package's own analytic
+field) with the oracle check of tests/test_baked.py on the port. Floats (rows, sigma, the colour scales) to 1e-5 of the
 largest entry; codes (mip, distance field, sigma bricks, int8 colours, row
 index) and the bounds exactly.
 
@@ -288,6 +289,52 @@ def test_compacted_phases_match_jax(oracle_bakes, renderer):
         assert to["phase_sizes"] == [int(v) for v in jo["phase_sizes"]]
         assert to["phase_rounds"] == [int(v) for v in jo["phase_rounds"]]
         assert to["phase_alive"] == [int(v) for v in jo["phase_alive"]]
+
+
+def test_bake_analytic_field_matches_jax():
+    """bake_analytic_field at B^3 (object only, 16 directions, the torch
+    analytic field on the port's side, JAX's on JAX's): the bake's floats
+    to 1e-5 of their largest entry, codes, row index and bounds exactly."""
+    from arnerf_tpu.datasets.synthetic import bake_analytic_field as j_bake
+    from arnerf_tpu_torch.datasets.synthetic import bake_analytic_field
+    jb = j_bake(scale=0.5, resolution=B)
+    tb = bake_analytic_field(scale=0.5, resolution=B, device="cpu")
+    assert 0 < tb.rows_q.shape[0] - 1 < 0.1 * B ** 3
+    _assert_same_bake(tb, jb)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            bake_analytic_field(resolution=8)
+
+
+def test_bake_analytic_object_field_matches_oracle():
+    """tests/test_baked.py's oracle check on the port: the object-only
+    field baked at 64^3 with no training is Lego-like sparse (occupancy
+    under 10 %, the tight AABB under 0.95 of the cube) and renders at
+    96x96 (trilinear, T 1e-4) over 24 dB against the dense analytic
+    oracle."""
+    from arnerf_tpu_torch.datasets.ray_utils import (get_ray_directions,
+                                                     look_at_pose)
+    from arnerf_tpu_torch.datasets.synthetic import (bake_analytic_field,
+                                                     render_analytic)
+    scale = 0.5
+    baked = bake_analytic_field(scale=scale, resolution=64, device="cpu")
+    assert float((baked.sigma > 0).float().mean()) < 0.10
+    assert bool((baked.aabb_hi - baked.aabb_lo < 2 * scale * 0.95).all())
+    W = H = 96
+    f = 0.5 * W / np.tan(0.5 * np.deg2rad(45.0))
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    ro, rd = get_rays(torch.from_numpy(get_ray_directions(H, W, K)),
+                      torch.from_numpy(look_at_pose(
+                          np.array([0.9, 0.25, 0.75])).astype(np.float32)))
+    rd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    gt, _, _ = render_analytic(ro, rd, scale, n_samples=512,
+                               object_only=True)
+    out = trb.render_baked(baked, None, ro, rd, NGPConfig(scale=scale),
+                           interp="trilinear", T_threshold=1e-4,
+                           chunk=1 << 13)
+    pred = out["rgb"] + (1 - out["opacity"])[:, None]
+    psnr = -10 * np.log10(float(torch.mean((pred - gt) ** 2)))
+    assert psnr > 24.0, f"object-only baked vs oracle PSNR {psnr:.2f}"
 
 
 def test_sigma_codes_and_tables_match_jax():

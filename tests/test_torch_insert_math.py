@@ -11,7 +11,9 @@ relative to each quantity's
 largest magnitude for the optimizers (5 EnvOptim steps, 3 global-SH trainer
 steps), whose Adam updates divide float32 gradient differences by
 sqrt(nu); exact equality where both sides run the same numpy (RANSAC, the F
-table, file round trips).
+table, file round trips). Reinhard: 1e-5 against OpenCV (the JAX package's
+operator) on the pixels OpenCV gives a finite value; its NaN at the image's
+smallest value is the one departure, pinned by name.
 """
 
 import hashlib
@@ -89,6 +91,96 @@ def _sgs(rng, n, lam=(2.0, 30.0)):
 def test_tonemapping(name):
     im = np.random.default_rng(0).uniform(0, 3, (5, 7, 3)).astype(np.float32)
     close(getattr(t_tm, name)(_t(im)), getattr(j_tm, name)(jnp.asarray(im)))
+
+
+def _hdr(kind):
+    rng = np.random.default_rng(0)
+    if kind == "uniform":
+        return rng.uniform(0, 4, (37, 53, 3)).astype(np.float32)
+    sigma = {"lognormal1": 1.0, "lognormal3": 3.0}[kind]
+    return np.exp(rng.normal(0, sigma, (96, 128, 3))).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "lognormal1", "lognormal3"])
+def test_reinhard_matches_opencv(kind):
+    """tonemapping_complex_reinhard (torch, no cv2) against the JAX
+    package's, which is OpenCV's createTonemapReinhard(2.2, 1, 0.5, 0):
+    1e-5 on every pixel OpenCV gives a finite value, and the port gives a
+    finite value everywhere."""
+    im = _hdr(kind)
+    want = j_tm.tonemapping_complex_reinhard(im)
+    got = t_tm.tonemapping_complex_reinhard(_t(im)).numpy()
+    fin = np.isfinite(want)
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert np.isfinite(got).all() and fin.mean() > 0.999
+    close(got[fin], want[fin])
+
+
+def test_reinhard_constant_image_is_nan_as_in_opencv():
+    """A constant image: max - min is 0, so the key is 0/0, NaN everywhere
+    in both."""
+    im = np.full((6, 9, 3), 0.7, np.float32)
+    assert np.isnan(j_tm.tonemapping_complex_reinhard(im)).all()
+    assert torch.isnan(t_tm.tonemapping_complex_reinhard(_t(im))).all()
+
+
+def test_reinhard_departure_finite_at_the_minimum():
+    """The departure, pinned: OpenCV's float32 scale-and-shift can map the
+    image's smallest value a hair below 0, and its gamma then gives NaN
+    there; the port maps it to exactly 0, and 0 ** (1 / 2.2) is 0."""
+    im = _hdr("uniform")
+    want = j_tm.tonemapping_complex_reinhard(im)
+    got = t_tm.tonemapping_complex_reinhard(_t(im)).numpy()
+    nan = np.isnan(want)
+    assert nan.any(), "the fixture no longer shows OpenCV's NaN"
+    assert (im[nan] == im.min()).all()
+    assert (got[nan] == 0.0).all()
+
+
+def _helper_inputs(name):
+    rng = np.random.default_rng(9)
+    if name == "geometry_schlick_ggx":
+        return (rng.uniform(0.01, 1, (64, 1)), rng.uniform(0, 1, (64, 1)))
+    if name == "tex2d":
+        s = rng.uniform(-1.3, 1.3, (97, 2))
+        s[:4] = [[-1, -1], [1, 1], [-1, 1], [0, 0]]
+        return rng.uniform(0, 1, (5, 7, 3)), s
+    if name == "tex3d":
+        s = rng.uniform(-1.3, 1.3, (97, 3))
+        s[:3] = [[-1, -1, -1], [1, 1, 1], [0, 0, 0]]
+        return rng.uniform(0, 1, (4, 5, 6, 2)), s
+    if name == "normalize_eps":
+        v = rng.normal(size=(33, 3))
+        v[0] = 0.0
+        return (v,)
+    return (rng.normal(size=(2, 6, 7, 3)),)      # pts2normal
+
+
+@pytest.mark.parametrize("name", ["geometry_schlick_ggx", "tex2d", "tex3d",
+                                  "normalize_eps", "pts2normal",
+                                  "enlarge_range"])
+def test_insert_helpers_match_jax(name):
+    """The six small insert helpers on seeded inputs (the samplers' in and
+    out of [-1, 1], on the edges; a zero vector for normalize_eps): 1e-5;
+    enlarge_range's integer box exactly, clipped at the screen on each
+    side and inside it."""
+    if name == "enlarge_range":
+        from types import SimpleNamespace
+        from arnerf_tpu.insert.main import NGPInsertor as JIns
+        screen = SimpleNamespace(H=24, W=32)
+        for bbox, scale in (([[2, 3], [10, 12]], 0.5),
+                            ([[0, 0], [24, 32]], 0.25),
+                            ([[8, 9], [12, 13]], 0.3)):
+            got = t_main.NGPInsertor.enlarge_range(screen, bbox, scale)
+            assert got == JIns.enlarge_range(screen, bbox, scale)
+        return
+    mod_t, mod_j = ((t_ru, j_ru) if name in ("geometry_schlick_ggx", "tex2d",
+                                             "tex3d") else (t_sh, j_sh))
+    args = [a.astype(np.float32) for a in _helper_inputs(name)]
+    got = getattr(mod_t, name)(*map(_t, args))
+    want = getattr(mod_j, name)(*map(jnp.asarray, args))
+    assert tuple(got.shape) == want.shape
+    close(got, want)
 
 
 def test_sh_basis_cubemap_and_coefficients():

@@ -109,6 +109,50 @@ def test_ray_aabb_intersect_single():
     assert (t[:, 0] < 0).any() and (t[:, 0] >= 0).any()
 
 
+def _many_shapes(kind):
+    """256 rays against 12 boxes or spheres: the first 4 overlap the
+    origin, where the first 48 rays start (inside several at once: t1 = 0
+    ties), 48 more start outside everything and point away (misses)."""
+    rng = np.random.default_rng(5)
+    c = rng.uniform(-1.5, 1.5, (12, 3)).astype(np.float32)
+    c[:4] = rng.uniform(-0.1, 0.1, (4, 3))
+    o = rng.uniform(-2, 2, (256, 3)).astype(np.float32)
+    o[:48] = rng.uniform(-0.05, 0.05, (48, 3))
+    o[48:96] = 4.0 * np.sign(rng.normal(size=(48, 3)))
+    d = rng.normal(size=(256, 3)).astype(np.float32)
+    d[48:96] = np.abs(d[48:96]) * np.sign(o[48:96])
+    if kind == "aabb":
+        size = rng.uniform(0.2, 0.6, (12, 3)).astype(np.float32)
+    else:
+        size = rng.uniform(0.2, 0.6, 12).astype(np.float32)
+    return o, d, c, size
+
+
+@pytest.mark.parametrize("max_hits", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["aabb", "sphere"])
+def test_ray_aabb_and_sphere_intersect(kind, max_hits):
+    """ray_aabb_intersect / ray_sphere_intersect (N x V, the first
+    max_hits by t1, -1 padded): counts and indices exact (the stable sort
+    keeps index order among the t1 = 0 ties of rays starting inside several
+    shapes), t to 1e-6; max_hits below and above the hit counts."""
+    from arnerf_tpu.ops import intersection as J
+    from arnerf_tpu_torch.ops import intersection as T
+    name = f"ray_{'aabb' if kind == 'aabb' else 'sphere'}_intersect"
+    o, d, c, size = _many_shapes(kind)
+    j = getattr(J, name)(jnp.asarray(o), jnp.asarray(d), jnp.asarray(c),
+                         jnp.asarray(size), max_hits)
+    t = getattr(T, name)(_t(o), _t(d), _t(c), _t(size), max_hits)
+    cnt, hits_t, idx = (np.asarray(x) for x in j)
+    assert t[0].dtype == t[2].dtype == torch.int32
+    np.testing.assert_array_equal(t[0].numpy(), cnt)
+    np.testing.assert_array_equal(t[2].numpy(), idx)
+    _close(t[1], hits_t)
+    assert (cnt[96:] == 0).any() and (cnt[48:96] == 0).all()
+    assert (cnt > max_hits).any() == (max_hits < 16)
+    assert ((hits_t[:48, :, 0] == 0).sum(axis=1) > 1).any() \
+        == (max_hits > 1)
+
+
 def test_sh_encode():
     rng = np.random.default_rng(3)
     d = rng.normal(size=(333, 3)).astype(np.float32)

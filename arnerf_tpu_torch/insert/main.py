@@ -36,9 +36,10 @@ object is relit from and composited into HDR radiance; the point cloud's
 colours are gamma-tonemapped, and a saved frame's EXR holds the HDR
 frame.
 
-A frame's stages run under `torch.profiler.record_function` spans:
+A frame's stages run under `profiling.span`s (utils/profiling.py):
 "probe" and "sg_fit" (action 1), "shade", "rect" and "shadow" (action 6);
-the renders inside them open the render layers' spans.
+the renders inside them open the render layers' spans (a network render
+its own `view`). While tracing is on each is recorded as a program span.
 
 The amortised SG fitter: `generate_envmaps` renders env maps at random
 surface points into gen_path/envmaps.npy (the JAX file name, so either
@@ -55,13 +56,13 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..datasets.ray_utils import get_ray_directions, get_rays
 from ..image_io import write_exr, write_png
 from ..ops import threefry
 from ..rendering import render_surface_normal, render_test
 from ..rendering_baked import bake_ngp, bucket_renderer, render_baked
+from ..utils import profiling
 from .envfit import EnvOptim, EnvTrainer, sg2envmap, trans_raw_sg
 from .global_light import GlobalLightEstimator
 from .insert_models import (get_embedder, mlp_skip_apply, mlp_skip_init,
@@ -475,12 +476,12 @@ class NGPInsertor:
         if (self.use_baked and sh_probe and not return_envmap
                 and not self.radiance
                 and not self.hparams.gen_probe_HDR_mapping):
-            with record_function("probe"):
+            with profiling.span("probe"):
                 self.cubemap_rgb, coeff = self._probe_fused_fn(
                     pt, self.global_sh[0], self._split_key())
             return coeff
         rays_o = self._t(pt)[None].expand(ray_dirs.shape)
-        with record_function("probe"):
+        with profiling.span("probe"):
             rgb, _ = self._probe_render(rays_o, ray_dirs,
                                         sh_bkg=self.global_sh[0],
                                         output_radiance=self.radiance)
@@ -490,7 +491,7 @@ class NGPInsertor:
             return _numpy(cubemap2env_map(rgb, 32, 128, 128))
         if sh_probe:
             return get_sh_coeff(ray_dirs[None], rgb[None])
-        with record_function("sg_fit"):
+        with profiling.span("sg_fit"):
             return self.env_opt.eval(cubemap2env_map(rgb, 32, 128, 128))
 
     def _sphere_probe_rays(self, pts, ray_dirs):
@@ -687,7 +688,7 @@ class NGPInsertor:
         if not gen_shadow:
             return rgb
         rays_o, rays_d = get_rays(self.directions.reshape(-1, 3), pose)
-        with record_function("shadow"):
+        with profiling.span("shadow"):
             if gen_shadow == 2:
                 return self.shadow_cast(rays_o, rays_d, rgb, depth_sur,
                                         kwargs.get("s_VP"),
@@ -711,7 +712,7 @@ class NGPInsertor:
         rect (`mask_r` False) moved to 1e6; last_rgb and last_depth
         updated under `mask_r` only; the shadow over the whole frame; the
         tonemap under --render_HDR_mapping. Returns the frame."""
-        with record_function("shade"):
+        with profiling.span("shade"):
             frame_obj, depth_obj = self.render_object(
                 kwargs["model_bbox"], normals, depths, sh_or_sg, pose, metal,
                 rough, None, use_sg_base, sg_use_self_shadow, **kwargs)
@@ -719,7 +720,7 @@ class NGPInsertor:
         win = (slice(r0, r0 + hr), slice(c0, c0 + wr))
         ro, rd = get_rays(self.directions[win].reshape(-1, 3), pose)
         ro = torch.where(mask_r.reshape(-1, 1), ro, 1e6)
-        with record_function("rect"):
+        with profiling.span("rect"):
             rgb, depth = self._rect_render_fused_fn(
                 ro, rd, frame_obj[win].reshape(-1, 3),
                 depth_obj[win].reshape(-1), key)
@@ -810,7 +811,7 @@ class NGPInsertor:
             if out is not None:
                 return out
         model_bbox = kwargs.get("model_bbox")
-        with record_function("shade"):
+        with profiling.span("shade"):
             render_res, depth_t = self.render_object(
                 model_bbox, normals, depths, sh_or_sg, pose, metal, rough,
                 albedo, use_sg_base, sg_use_self_shadow, **kwargs)
@@ -823,7 +824,7 @@ class NGPInsertor:
             self.directions[hs:hl, ws:wl].reshape(-1, 3), pose)
         im_bkg = render_res[hs:hl, ws:wl].reshape(-1, 3)
         mesh_depth = depth_t[hs:hl, ws:wl].reshape(-1)
-        with record_function("rect"):
+        with profiling.span("rect"):
             if self.use_baked and not self.radiance:
                 rgb, depth_sur = self._render_scene_baked(rays_o, rays_d,
                                                           im_bkg, mesh_depth)

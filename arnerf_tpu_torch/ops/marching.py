@@ -17,6 +17,8 @@ allocation is scaled down and its samples are strided along the ray
 instead of truncated, as in the JAX package. Samples are selected with
 order-preserving sorts, the JAX package's selection="sort" (its
 "search" selection gives the same sample sets and has no counterpart).
+While tracing is on (utils/profiling.py) they count, for the enclosing
+span's unit, the samples the buffer kept (its allocated slots).
 """
 
 import math
@@ -25,6 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from .stepping import SQRT3, calc_dt, fma, lattice_t, mip_from_pos, \
     mip_from_dt
 
@@ -393,6 +396,7 @@ def march_rays_train(rays_o, rays_d, hits_t, occ_flat, noise, *,
     dirs = rays_d[r]
     xyzs = fma(t_m[:, None], dirs, rays_o[r])
     fvalid = valid.to(t_m.dtype)
+    profiling.count("samples_kept", alloc.sum)
     return MarchResults(
         xyzs=xyzs * fvalid[:, None], dirs=dirs * fvalid[:, None],
         deltas=dt_m * fvalid, ts=t_m * fvalid, ray_idx=r, valid=valid,
@@ -493,6 +497,7 @@ def march_rays_train_pooled(rays_o, rays_d, hits_t, occ_flat, noise, *,
     dirs = rays_d[r]
     xyzs = fma(t_m[:, None], dirs, rays_o[r])
     fvalid = valid.to(t_m.dtype)
+    profiling.count("samples_kept", alloc.sum)
     return MarchResults(
         xyzs=xyzs * fvalid[:, None], dirs=dirs * fvalid[:, None],
         deltas=dt_m * fvalid, ts=t_m * fvalid, ray_idx=r, valid=valid,

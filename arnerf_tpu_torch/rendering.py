@@ -8,11 +8,15 @@ device-side while_loop is simply a host loop here; there is no compiled
 variant to fall back from. Every ray is independent of every other, so
 the chunking below bounds memory without changing any result.
 
-Each layer of a round runs under a `torch.profiler.record_function` span
-("march", "field", "composite"; "first_hit" for the pre-pass), so a
-profile of a render attributes device time to layers. With no profiler
-active a span costs about a microsecond; an 800x800 view opens a few
-dozen.
+A `render_test` call runs under a `view` span whose unit is the
+process's next view ordinal (utils/profiling.py); each layer of a round
+runs under a span of it ("march", "field", "composite"; "first_hit" for
+the pre-pass), so a profile of a render attributes device time to layers,
+and each point where the host waits for the card (a round's and a
+pre-pass's test for live rays, the nonzero of the compactions, the
+sample total) under a `host_read` span. With tracing off a span costs what
+a `record_function` range costs (about 10 us on an H100 machine's host);
+an 800x800 view at the viewer's settings opens about 55.
 
 `render_surface_normal` (the AR insertor's surface cache) differentiates
 the density with respect to the positions only, so the hash-grid backward
@@ -26,7 +30,6 @@ default there.
 """
 
 import torch
-from torch.profiler import record_function
 
 from .insert.sh_math import get_sh_val
 from .models.ngp import (NGPConfig, ngp_density, ngp_forward,
@@ -37,6 +40,7 @@ from .ops.marching import (build_coarse_occupancy, coarse_dilation_radius,
                            march_rays_test, march_rays_train,
                            march_rays_train_pooled)
 from .ops.stepping import SQRT3, num_lattice_steps
+from .utils import profiling
 
 MAX_SAMPLES = 1024   # reference: models/rendering.py:9
 NEAR_DISTANCE = 0.01
@@ -94,7 +98,7 @@ def render_train(params, grid_state, rays_o, rays_d, cfg: NGPConfig, *,
               n_candidates=default_candidates(cfg, exp_step_factor,
                                               max_samples),
               m_cap=m_cap, s_cap=s_cap, occ_coarse=occ_coarse)
-    with record_function("march"):
+    with profiling.span("march"):
         if seg_pool > 0 and occ_coarse is not None:
             mr = march_rays_train_pooled(rays_o, rays_d, hits,
                                          grid_state.occ_flat, noise,
@@ -114,10 +118,10 @@ def _render_train_from_march(params, mr, cfg: NGPConfig, *, seed, rgb_bg,
                              exposure=None):
     """Field eval + composite + background blend over MarchResults."""
     sample_exposure = None if exposure is None else exposure[mr.ray_idx]
-    with record_function("field"):
+    with profiling.span("field"):
         sigmas, rgbs = ngp_forward(params, mr.xyzs, mr.dirs + 1e-12, cfg,
                                    exposure=sample_exposure, seed=seed)
-    with record_function("composite"):
+    with profiling.span("composite"):
         comp = composite_train(sigmas, rgbs, mr.deltas, mr.ts, mr.ray_idx,
                                mr.valid, mr.ray_start, mr.counts,
                                T_threshold)
@@ -200,9 +204,11 @@ def render_test_chunk(params, grid_state, rays_o, rays_d, cfg: NGPConfig, *,
     total = torch.zeros((), dtype=torch.int64, device=dev)
     rounds = 0
     while (samples_done < max_samples
-           and not (max_rounds and rounds >= max_rounds)
-           and bool(alive.any())):
-        with record_function("march"):
+           and not (max_rounds and rounds >= max_rounds)):
+        with profiling.span("host_read"):
+            if not bool(alive.any()):
+                break
+        with profiling.span("march"):
             xyzs, deltas, ts, n_eff, t_next = march_rays_test(
                 rays_o, rays_d, t_cur, t2, grid_state.occ_flat,
                 scale=cfg.scale, cascades=cfg.cascades,
@@ -216,11 +222,11 @@ def render_test_chunk(params, grid_state, rays_o, rays_d, cfg: NGPConfig, *,
         if exposure is not None:
             sample_exposure = exposure[:, None, :].expand(N, S, 1) \
                 .reshape(-1, 1)
-        with record_function("field"):
+        with profiling.span("field"):
             sig, col = ngp_forward_chunked(params, flat_x, flat_d + 1e-12,
                                            cfg, exposure=sample_exposure,
                                            output_radiance=output_radiance)
-        with record_function("composite"):
+        with profiling.span("composite"):
             opacity, depth, rgb, still = composite_test_step(
                 sig.reshape(N, S), col.reshape(N, S, 3), deltas, ts, n_eff,
                 opacity, depth, rgb, T_threshold)
@@ -229,8 +235,10 @@ def render_test_chunk(params, grid_state, rays_o, rays_d, cfg: NGPConfig, *,
         total = total + n_eff.sum()
         samples_done += S
         rounds += 1
+    with profiling.span("host_read"):
+        total = int(total)
     out = {"opacity": opacity, "depth": depth, "rgb": rgb,
-           "total_samples": int(total)}
+           "total_samples": total}
     if return_state:
         out["state"] = (t_cur, opacity, depth, rgb, alive, samples_done)
     return out
@@ -253,7 +261,10 @@ def first_hit(grid_state_occ, occ_coarse, rays_o, rays_d, hits,
     t_c = torch.where(unresolved, t1, t2 + 1.0)
     alive = torch.zeros_like(unresolved)
     t_first = t2 + 1.0
-    while bool(unresolved.any()):
+    while True:
+        with profiling.span("host_read"):
+            if not bool(unresolved.any()):
+                break
         _, _, ts, n_eff, t_next = march_rays_test(
             rays_o, rays_d, t_c, t2, grid_state_occ,
             scale=cfg.scale, cascades=cfg.cascades,
@@ -306,7 +317,7 @@ def render_test_fast(params, grid_state, rays_o, rays_d, cfg: NGPConfig, *,
         fh_K = num_lattice_steps(NEAR_DISTANCE, NEAR_DISTANCE + diag,
                                  exp_step_factor, max_samples,
                                  cfg.grid_size, step_scale)
-        with record_function("first_hit"):
+        with profiling.span("first_hit"):
             found = [first_hit(grid_state.occ_flat, occ_coarse,
                                rays_o[i:i + chunk], rays_d[i:i + chunk],
                                hits[i:i + chunk], cfg,
@@ -315,7 +326,8 @@ def render_test_fast(params, grid_state, rays_o, rays_d, cfg: NGPConfig, *,
                                dt_scale=dt_scale)
                      for i in range(0, N, chunk)]
         alive0 = torch.cat([a for a, _ in found])
-        idx0 = torch.nonzero(alive0)[:, 0]
+        with profiling.span("host_read"):
+            idx0 = torch.nonzero(alive0)[:, 0]
         if len(idx0) == 0:
             return {"opacity": opacity, "depth": depth, "rgb": rgb,
                     "total_samples": 0}
@@ -349,7 +361,8 @@ def render_test_fast(params, grid_state, rays_o, rays_d, cfg: NGPConfig, *,
     rgb[idx0] = rgb1
 
     # ---- phase 2: gather the survivors again, bigger rounds to the end -----
-    alive_idx = torch.nonzero(alive)[:, 0]    # indices into the phase-1 set
+    with profiling.span("host_read"):
+        alive_idx = torch.nonzero(alive)[:, 0]  # into the phase-1 set
     kw2 = dict(kwargs)
     kw2["samples_per_round"] = max(kwargs.get("samples_per_round", 32), 64)
     for i in range(0, len(alive_idx), chunk):
@@ -381,40 +394,41 @@ def render_test(params, grid_state, rays_o, rays_d, cfg: NGPConfig, *,
     Step sizing mirrors the reference's test kernel, which passes
     `cascades` where calc_dt expects `scale` (raymarching.cu:370,399);
     override with dt_scale=None to step exactly as in training."""
-    N = rays_o.shape[0]
-    chunk = min(chunk, N)
-    if "dt_scale" not in kwargs:
-        kwargs["dt_scale"] = float(cfg.cascades)
-    if fast and kwargs.get("mesh_depth_map") is None \
-            and kwargs.get("exposure") is None:
-        result = render_test_fast(params, grid_state, rays_o, rays_d, cfg,
-                                  chunk=chunk, **kwargs)
-    else:
-        outs = []
-        for i in range(0, N, chunk):
-            kw = dict(kwargs)
-            n = min(chunk, N - i)
-            e = kw.get("exposure")
-            if e is not None:
-                kw["exposure"] = (e.reshape(1, 1).expand(n, 1)
-                                  if e.ndim == 0 or e.shape[0] == 1
-                                  else e[i:i + chunk])
-            if kw.get("mesh_depth_map") is not None:
-                kw["mesh_depth_map"] = kw["mesh_depth_map"][i:i + chunk]
-            outs.append(render_test_chunk(params, grid_state,
-                                          rays_o[i:i + chunk],
-                                          rays_d[i:i + chunk], cfg, **kw))
-        result = {k: torch.cat([o[k] for o in outs])
-                  for k in ("opacity", "depth", "rgb")}
-        result["total_samples"] = sum(o["total_samples"] for o in outs)
+    with profiling.span("view", unit=profiling.next_view()):
+        N = rays_o.shape[0]
+        chunk = min(chunk, N)
+        if "dt_scale" not in kwargs:
+            kwargs["dt_scale"] = float(cfg.cascades)
+        if fast and kwargs.get("mesh_depth_map") is None \
+                and kwargs.get("exposure") is None:
+            result = render_test_fast(params, grid_state, rays_o, rays_d, cfg,
+                                      chunk=chunk, **kwargs)
+        else:
+            outs = []
+            for i in range(0, N, chunk):
+                kw = dict(kwargs)
+                n = min(chunk, N - i)
+                e = kw.get("exposure")
+                if e is not None:
+                    kw["exposure"] = (e.reshape(1, 1).expand(n, 1)
+                                      if e.ndim == 0 or e.shape[0] == 1
+                                      else e[i:i + chunk])
+                if kw.get("mesh_depth_map") is not None:
+                    kw["mesh_depth_map"] = kw["mesh_depth_map"][i:i + chunk]
+                outs.append(render_test_chunk(params, grid_state,
+                                              rays_o[i:i + chunk],
+                                              rays_d[i:i + chunk], cfg, **kw))
+            result = {k: torch.cat([o[k] for o in outs])
+                      for k in ("opacity", "depth", "rgb")}
+            result["total_samples"] = sum(o["total_samples"] for o in outs)
 
-    if blend_bkg and (im_bkg is not None or sh_bkg is not None):
-        # the image background wins where both are given
-        rgb_bg = im_bkg if im_bkg is not None else \
-            get_sh_val(sh_bkg, rays_d, clamp_positive=True)
-        result["rgb"] = result["rgb"] \
-            + rgb_bg * (1.0 - result["opacity"][:, None])
-    return result
+        if blend_bkg and (im_bkg is not None or sh_bkg is not None):
+            # the image background wins where both are given
+            rgb_bg = im_bkg if im_bkg is not None else \
+                get_sh_val(sh_bkg, rays_d, clamp_positive=True)
+            result["rgb"] = result["rgb"] \
+                + rgb_bg * (1.0 - result["opacity"][:, None])
+        return result
 
 
 def render_surface_normal(params, pts, cfg: NGPConfig):

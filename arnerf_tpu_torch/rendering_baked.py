@@ -40,8 +40,10 @@ call `bucket_renderer` for one bucket of rays at a time.
 tunnel with one scalar fetch, and on the card a frame's device time is
 read with CUDA events.
 
-A render runs under `record_function` spans ("cull", "prelude", "march",
-"color") so a profile attributes its device time.
+A render runs under `profiling.span`s ("cull", "prelude", "march",
+"color"; utils/profiling.py), so a profile attributes its device time,
+and while tracing is on each is recorded as a program span under the
+unit of the span that encloses it.
 """
 
 from dataclasses import dataclass
@@ -49,7 +51,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from .insert.sh_math import sh9_basis
 from .ops import threefry
@@ -57,6 +58,7 @@ from .ops.composite import composite_test_step
 from .ops.intersection import ray_aabb_intersect_single
 from .ops.rng import hash_uniform3
 from .ops.stepping import f32, fma, mip_from_pos
+from .utils import profiling
 
 # row layout: [sigma, r_sh(9), g_sh(9), b_sh(9), pad(4)] -> 32 channels
 N_CH = 32
@@ -859,7 +861,7 @@ def render_baked_uniform(rows, aabb_lo, aabb_hi, rays_o, rays_d, key, *,
         else:
             roc, rdc, t1c, t2c = rays_o, rays_d, t1, t2
             step_c = 2 * w_c
-        with record_function("prelude"):
+        with profiling.span("prelude"):
             any_occ, first_k, last_k = _ladder_prelude(
                 mip, roc, rdc, t1c, t2c, B, scale, step_c)
         t_start = t1c + (first_k + 0.5).float() * step_c - 1.5 * w_c
@@ -929,7 +931,7 @@ def render_baked_uniform(rows, aabb_lo, aabb_hi, rays_o, rays_d, key, *,
     zeros = torch.zeros(N, device=dev)
     carry = [t0v, zeros, zeros.clone(), torch.zeros((N, 3), device=dev),
              alive0]
-    with record_function("march"):
+    with profiling.span("march"):
         carry, rounds, anatomy = _run_phases(
             carry, [rays_o, rays_d, sh_d, t_end], sizes, lambda c: c[4],
             make_body, go)
@@ -983,7 +985,7 @@ def render_baked_mc_uniform(rows, aabb_lo, aabb_hi, rays_o, rays_d, key, *,
     alive0 = (hits[:, 0] > -0.5) & (t2 > t1)
     if mip_dist is not None:
         w_c = MIP_FACTOR * 2.0 * scale / B
-        with record_function("prelude"):
+        with profiling.span("prelude"):
             any_occ, first_t, last_t = _prelude_dist(
                 mip_dist, rays_o, rays_d, t1, t2, B, scale)
         t_begin = torch.clamp(first_t - 1.5 * w_c, min=t1, max=t2)
@@ -1046,7 +1048,7 @@ def render_baked_mc_uniform(rows, aabb_lo, aabb_hi, rays_o, rays_d, key, *,
     zeros = torch.zeros(N, device=dev)
     carry = [torch.where(alive0, t_begin, t2 + 1.0), zeros, zeros.clone(),
              torch.zeros((N, 3), device=dev), alive0]
-    with record_function("march"):
+    with profiling.span("march"):
         carry, rounds, _ = _run_phases(carry, [rays_o, rays_d, sh_d, t_end],
                                        sizes, lambda c: c[4], make_body, go)
     _, opacity, depth, rgb, _ = carry
@@ -1093,7 +1095,7 @@ def render_baked_bricks(bricks, rows, row_index, rows_q, mip,
     else:
         roc, rdc, t1c, t2c = rays_o, rays_d, t1, t2
         step_c = 2 * w_c
-    with record_function("prelude"):
+    with profiling.span("prelude"):
         any_occ, first_k, last_k = _ladder_prelude(mip, roc, rdc, t1c, t2c,
                                                    B, scale, step_c)
     t_start = t1c + (first_k + 0.5).float() * step_c - 1.5 * w_c
@@ -1179,12 +1181,12 @@ def render_baked_bricks(bricks, rows, row_index, rows_q, mip,
     zeros = torch.zeros(N, device=dev)
     carry = [t0v, zeros, zeros.clone(), torch.zeros((N, Wc), device=dev),
              torch.zeros((N, Wc), device=dev), alive0]
-    with record_function("march"):
+    with profiling.span("march"):
         carry, rounds, anatomy = _run_phases(carry, [rays_o, rays_d, t_end],
                                              sizes, lambda c: c[5],
                                              make_body, go)
     _, opacity, depth, bw, bwt, _ = carry
-    with record_function("color"):
+    with profiling.span("color"):
         rgb = _bucket_color(rows, row_index, rows_q, rays_o, rays_d, bw, bwt,
                             B, scale)
     return {"opacity": opacity, "depth": depth / dn[:, 0], "rgb": rgb,
@@ -1385,7 +1387,7 @@ def render_baked(baked: BakedField, grid_state, rays_o, rays_d, cfg, *,
     and float16-rounded opacity and depth instead of float rgb."""
     if key is None:
         key = threefry.prng_key(0)
-    with record_function("cull"):
+    with profiling.span("cull"):
         buckets, N, blocked = cull_and_buckets(baked, rays_o, rays_d, chunk,
                                                img_wh=img_wh)
     if stats is not None:
@@ -1414,7 +1416,7 @@ def baked_frame_display_fn(baked: BakedField, rays_o, rays_d, *,
     ["rgb_u8"]. The key is split per bucket, as render_baked splits it
     (JAX's frame passes the one key to every bucket). stats: as
     render_baked's rounds and prelude counts."""
-    with record_function("cull"):
+    with profiling.span("cull"):
         buckets, N, blocked = cull_and_buckets(baked, rays_o, rays_d, chunk,
                                                img_wh=img_wh)
     render = bucket_renderer(baked, blocked, interp="stochastic",

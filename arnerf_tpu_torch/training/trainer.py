@@ -42,6 +42,15 @@ draws through `step_loss`'s explicit inputs.
 Multi-GPU training (`mesh`, parallel/): the JAX trainer's shard_map
 programs become one process per rank, joined by explicit collectives in
 each step (parallel/dp.py, parallel/tp.py).
+
+Spans (utils/profiling.py): each step runs under a `train_step` span whose
+unit is its step, with "sample", "loss", "backward", "join" and "adam"
+(and the render's "march", "field", "composite") inside it; a grid update
+runs under `grid_update`, of the step it precedes; fit()'s read of a
+block's metrics, where the host waits for the card, under `host_read`, of
+the block's last step. While tracing is on the join counts, in
+`join_bytes`, the logical bytes its collectives moved
+(parallel/accounting.py).
 """
 
 import time
@@ -49,7 +58,6 @@ from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..datasets.ray_utils import axisangle_to_R, get_rays
 from ..models.ngp import (NGPConfig, grid_state_init, mark_invisible_cells,
@@ -59,6 +67,7 @@ from ..rendering import (MAX_SAMPLES, draw_train_inputs, render_test,
                          render_train)
 from ..parallel.dp import join_step
 from ..parallel.tp import TABLE_KEY, TableSharding, tree_map
+from ..utils import profiling
 from . import ckpt as ckpt_lib
 from .losses import NeRFLossConfig, nerf_loss, total_loss
 from .metrics import psnr as psnr_fn
@@ -308,7 +317,7 @@ def step_loss(params, grid_state, rays_o, rays_d, rgb_gt, *, noise, seed,
         max_samples=tc.max_samples, seg_cap=seg_cap, exposure=exposure,
         seg_pool=tc.batch_size * seg_cap if tc.seg_pool and seg_cap > 0
         else 0)
-    with record_function("loss"):
+    with profiling.span("loss"):
         ld = nerf_loss(results, rgb_gt, tc.loss)
         if tc.use_exposure:
             dev = rays_o.device
@@ -331,7 +340,7 @@ def train_step(params, opt: Adam, grid_state, images, poses, directions, *,
     `mesh` the step is joined across ranks (finish_step); with `tp`
     params hold this rank's table shard, expanded for the render."""
     net = params if tp is None else tp.expand(params)
-    with record_function("sample"):
+    with profiling.span("sample"):
         rays_o, rays_d, rgb_gt, exposure = sample_rays(
             images, poses, directions, tc, generator,
             net["pose_deltas"] if tc.optimize_ext else None)
@@ -354,7 +363,7 @@ def finish_step(params, opt: Adam, loss, results, rgb_gt, *,
     `mesh`'s ranks (parallel/dp.py: the mean, as DDP's all-reduce) when
     given, then the Adam step. Returns the step's metrics (joined)."""
     leaves = ckpt_lib.tree_leaves(params)
-    with record_function("backward"):
+    with profiling.span("backward"):
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     B = tc.batch_size
     metrics = {
@@ -366,9 +375,12 @@ def finish_step(params, opt: Adam, loss, results, rgb_gt, *,
         "nseg_avg": results["total_nseg"].float() / B,
     }
     if mesh is not None:
-        with record_function("join"):
+        with profiling.span("join"):
+            moved = sum(mesh.collective_bytes.values())
             grads, metrics = join_step(leaves, grads, metrics, mesh, tp)
-    with record_function("adam"):
+            profiling.count("join_bytes", lambda: sum(
+                mesh.collective_bytes.values()) - moved)
+    with profiling.span("adam"):
         opt.step(params, grads)
     return metrics
 
@@ -432,9 +444,6 @@ class NeRFTrainer:
         self.directions = torch.as_tensor(dataset.directions,
                                           device=self.device)
         self._shrink_votes = self._segcap_votes = 0
-        # (first step, host seconds, warmup) of every block fit() ran; the
-        # seconds end at the block's loss read, which waits for the card
-        self.block_times = []
 
     # -- steps ---------------------------------------------------------------
 
@@ -451,7 +460,7 @@ class NeRFTrainer:
         if self.tp is not None:
             net[TABLE_KEY] = self.tp.gather(
                 net[TABLE_KEY])[:self.tp.total_entries]
-        with record_function("grid_update"):
+        with profiling.span("grid_update", unit=self.step):
             self.grid_state = update_density_grid(
                 net, self.grid_state, self.cfg, DENSITY_THRESHOLD,
                 warmup=warmup, generator=self.grid_generator,
@@ -471,7 +480,8 @@ class NeRFTrainer:
         single-step path does."""
         if self.step % self.tc.update_interval == 0:
             self.update_grid(self.step < self.tc.warmup_steps)
-        metrics = self._step(self.tc.seg_cap)
+        with profiling.span("train_step", unit=self.step):
+            metrics = self._step(self.tc.seg_cap)
         self.step += 1
         return metrics
 
@@ -488,8 +498,9 @@ class NeRFTrainer:
         self.update_grid(warmup)
         seg_cap = 0 if warmup else self.tc.seg_cap
         nseg = []
-        for _ in range(self.tc.update_interval):
-            metrics = self._step(seg_cap)
+        for i in range(self.tc.update_interval):
+            with profiling.span("train_step", unit=self.step + i):
+                metrics = self._step(seg_cap)
             nseg.append(metrics["nseg"])
         metrics["nseg"] = torch.stack(nseg).max()
         self.step += self.tc.update_interval
@@ -618,12 +629,9 @@ class NeRFTrainer:
                 remaining = n - (self.step - start)
                 if self.step % self.tc.update_interval == 0 \
                         and remaining >= self.tc.update_interval:
-                    first, tb = self.step, time.perf_counter()
                     last = self.train_block()
-                    host = {k: float(v) for k, v in last.items()}
-                    self.block_times.append(
-                        (first, time.perf_counter() - tb,
-                         first < self.tc.warmup_steps))
+                    with profiling.span("host_read", unit=self.step - 1):
+                        host = {k: float(v) for k, v in last.items()}
                     if not np.isfinite(host["loss"]):
                         raise FloatingPointError(
                             f"non-finite loss at step {self.step}")

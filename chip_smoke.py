@@ -706,6 +706,7 @@ def train_entry(argv, work, label, save_at=None):
     from arnerf_tpu_torch import train as port_train
     from arnerf_tpu_torch.ops import fused_head as fh
     from arnerf_tpu_torch.ops import segments as seg
+    from arnerf_tpu_torch.utils import profiling
     work.mkdir(parents=True, exist_ok=True)
     counts, blocks = {}, []
 
@@ -723,8 +724,10 @@ def train_entry(argv, work, label, save_at=None):
     try:
         fh.reset_launches()
         seg.reset_launches()
+        profiling.TRACER.reset()
         t0 = time.perf_counter()
-        res = port_train.main(argv, callback=on_block)
+        with profiling.tracing():
+            res = port_train.main(argv, callback=on_block)
         torch.cuda.synchronize()
         res["seconds"] = time.perf_counter() - t0
         # training's launches stop at its last block; the entry point's
@@ -739,7 +742,7 @@ def train_entry(argv, work, label, save_at=None):
     tc = trainer.tc
     anneal = tc.stoch_anneal_frac * tc.total_steps
     ms = {"warmup": [], "stochastic": [], "exact": []}
-    for first, t, warmup in trainer.block_times:
+    for first, t, warmup in block_seconds(trainer):
         kind = "warmup" if warmup else \
             "exact" if first >= anneal else "stochastic"
         ms[kind].append(1e3 * t / tc.update_interval)
@@ -761,6 +764,20 @@ def train_entry(argv, work, label, save_at=None):
     print(f"{label}: test split PSNR {res['psnr']} SSIM {res['ssim']} "
           f"fused-head launches {res['val_launches']}", flush=True)
     return res
+
+
+def block_seconds(trainer):
+    """(first step, host seconds, warmup) of each block fit() ran under
+    profiling.tracing(): from the block's grid update to the end of its
+    metrics read, which waits for the card."""
+    from arnerf_tpu_torch.utils import profiling
+    spans = profiling.TRACER.spans
+    ui, warm = trainer.tc.update_interval, trainer.tc.warmup_steps
+    grid = {s.unit: s.start_ns for s in spans if s.name == "grid_update"}
+    read = {s.unit: s.end_ns for s in spans if s.name == "host_read"
+            and s.parent is None}
+    return [(f, 1e-9 * (read[f + ui - 1] - t0), f < warm)
+            for f, t0 in sorted(grid.items()) if f + ui - 1 in read]
 
 
 def eval_entry(argv, label, baked=False):
@@ -1480,7 +1497,7 @@ def reference_check(ckpt, dev):
 def profile_view(ckpt, dev, dtype_name="bfloat16"):
     """Where one 800x800 view's time goes (bf16, or f32 as eval renders by
     default): wall time, device busy time (sum of kernel durations, one
-    stream), the render layers' spans (rendering.py's record_function
+    stream), the render layers' spans (rendering.py's profiling.span
     ranges) and the top kernels, the fused head's among them. Reports "not
     measured" if the profiler sees no device activity."""
     import torch
@@ -3060,6 +3077,7 @@ def _parallel_entry(out, argv):
     from arnerf_tpu_torch.ops import segments as seg
     from arnerf_tpu_torch.parallel.accounting import block_collective_report
     from arnerf_tpu_torch.training.ckpt import tree_leaves
+    from arnerf_tpu_torch.utils import profiling
     counts, losses = {}, []
 
     def on_block(step, metrics, trainer):
@@ -3068,8 +3086,10 @@ def _parallel_entry(out, argv):
 
     fh.reset_launches()
     seg.reset_launches()
+    profiling.TRACER.reset()
     t0 = time.perf_counter()
-    res = port_train.main(argv, callback=on_block)
+    with profiling.tracing():
+        res = port_train.main(argv, callback=on_block)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     trainer = res["trainer"]
@@ -3083,7 +3103,7 @@ def _parallel_entry(out, argv):
         "seconds": time.perf_counter() - t0,
         # the first block's first-use costs left out
         "ms_per_step": _median_ms_per_step(
-            [t for _, t, _ in trainer.block_times[1:]]),
+            [t for _, t, _ in block_seconds(trainer)[1:]]),
         "mesh": [trainer.mesh.n_dp, trainer.mesh.n_mp],
         "collectives": block_collective_report(trainer)}))
 

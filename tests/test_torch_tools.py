@@ -1,6 +1,6 @@
 """The port's tools against the JAX package's on the CPU: the .orbax
 refusal of training/ckpt.py, utils/profiling.py (MetricsLogger's JSONL,
-device_trace, StepTimer), insert/pretabulate_fh.py, insert/fit_log_loss.py
+device_trace), insert/pretabulate_fh.py, insert/fit_log_loss.py
 and insert/train_brdf.py (the JAX package's scripts/train_brdf.py, loaded
 from its file: scripts/ is not a package).
 
@@ -28,8 +28,7 @@ from arnerf_tpu.insert import sg_shadow as j_sg_shadow
 from arnerf_tpu_torch.insert import fit_log_loss as t_fit_log_loss
 from arnerf_tpu_torch.insert import pretabulate_fh, sg_shadow, train_brdf
 from arnerf_tpu_torch.training import ckpt
-from arnerf_tpu_torch.utils.profiling import (MetricsLogger, StepTimer,
-                                              device_trace)
+from arnerf_tpu_torch.utils.profiling import MetricsLogger, device_trace
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -86,11 +85,6 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     names = {e.get("name") for e in events["traceEvents"]}
     assert "my_span" in names and "aten::mm" in names
     assert any(k.key == "my_span" for k in prof.key_averages())
-    timer = StepTimer(alpha=0.5)
-    for _ in range(3):
-        with timer:
-            pass
-    assert timer.ema is not None and timer.fps > 0
 
 
 def test_pretabulate_fh_writes_the_table(tmp_path, capsys, monkeypatch):

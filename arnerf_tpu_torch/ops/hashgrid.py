@@ -22,16 +22,28 @@ products are formed in int64 and masked to 32 bits.
     position gradient is zero (the sampled forward is piecewise constant
     in x).
 Both backwards recompute the indices instead of saving (N, L, 8) tensors,
-as the JAX custom VJPs do. The gather itself is plain tensor indexing; a
-hand kernel for it is later work.
+as the JAX custom VJPs do.
+
+What runs where: the exact forward of a CUDA table (float32 or bfloat16,
+F = 2) launches the hand-written sm_90a kernel csrc/hashgrid.cu, all levels
+in one pass with indices and weights in registers; on a CUDA tensor it
+launches or raises. A CPU table takes the plain version `_encode_fwd_impl`,
+whose arithmetic the kernel repeats. The JAX package has no kernel for this
+encode (plain XLA), so the kernel replaces none; it was added because the
+plain version led the view's device time. The exact backward, and the
+stochastic forward and backward, are plain PyTorch on every device (their
+table sums go to ops/segments.py). The wrapper counts its launches.
 """
 
 from dataclasses import dataclass, field
+import ctypes
+import functools
 import math
 
 import numpy as np
 import torch
 
+from .. import build
 from .rng import hash_uniform
 from .segments import segment_sum
 from .stepping import fma
@@ -44,6 +56,15 @@ _U32 = 0xFFFFFFFF
 _CORNERS = np.array(
     [[i, j, k] for i in (0, 1) for j in (0, 1) for k in (0, 1)], dtype=np.int64
 )
+
+# exact-forward kernel launches since the last reset (plain version calls do
+# not count)
+launches = 0
+
+
+def reset_launches():
+    global launches
+    launches = 0
 
 
 @dataclass(frozen=True)
@@ -165,6 +186,102 @@ def _encode_fwd_impl(table, x, cfg: HashGridConfig):
     return out.reshape(n, cfg.out_dim)
 
 
+MAX_LEVELS = 32
+
+
+class _Levels(ctypes.Structure):
+    """csrc/hashgrid.cu's ArnerfHashLevels."""
+    _fields_ = [("scale", ctypes.c_float * MAX_LEVELS),
+                ("res", ctypes.c_uint32 * MAX_LEVELS),
+                ("offset", ctypes.c_uint32 * MAX_LEVELS),
+                ("hashed", ctypes.c_uint32),
+                ("table_mask", ctypes.c_uint32),
+                ("n_levels", ctypes.c_int32)]
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_levels(cfg: HashGridConfig) -> _Levels:
+    """The kernel's level constants of `cfg`, built once a configuration:
+    each scale rounded to float32 as `_level_tensors` rounds it."""
+    if not 1 <= cfg.n_levels <= MAX_LEVELS:
+        raise ValueError(f"hashgrid_encode: {cfg.n_levels} levels, the "
+                         f"kernel takes 1 to {MAX_LEVELS}")
+    if cfg.total_entries >= 1 << 32:
+        raise ValueError(f"hashgrid_encode: {cfg.total_entries} table rows "
+                         f"do not fit the kernel's uint32 rows")
+    lv = _Levels()
+    for l in range(cfg.n_levels):
+        lv.scale[l] = float(np.float32(cfg.scales[l]))
+        lv.res[l] = cfg.resolutions[l]
+        lv.offset[l] = cfg.offsets[l]
+    lv.hashed = sum(1 << l for l, h in enumerate(cfg.hashed) if h)
+    lv.table_mask = (1 << cfg.log2_hashmap_size) - 1
+    lv.n_levels = cfg.n_levels
+    return lv
+
+
+def _library():
+    lib = build.load("hashgrid")
+    fn = lib.arnerf_hashgrid_encode
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int64, ctypes.POINTER(_Levels), ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.arnerf_hashgrid_error_string.argtypes = [ctypes.c_int]
+        lib.arnerf_hashgrid_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _encode_cuda(table, x, cfg: HashGridConfig):
+    """The exact forward on the card: one launch of csrc/hashgrid.cu."""
+    dev = table.device
+    if x.device != dev:
+        raise ValueError(f"hashgrid_encode: x is on {x.device}, the table "
+                         f"on {dev}")
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"hashgrid_encode: table dtype {table.dtype}, the "
+                         f"kernel takes float32 or bfloat16")
+    if cfg.n_features != 2 or table.ndim != 2 or table.shape[1] != 2 \
+            or table.shape[0] < cfg.total_entries:
+        raise ValueError(f"hashgrid_encode: table {tuple(table.shape)} with "
+                         f"{cfg.n_features} features; the kernel takes F = 2 "
+                         f"and at least {cfg.total_entries} rows")
+    if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != 3:
+        raise ValueError(f"hashgrid_encode: x must be (N, 3) float32, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if not (table.is_contiguous() and x.is_contiguous()):
+        raise ValueError("hashgrid_encode: table and x must be contiguous")
+    if table.data_ptr() % (2 * table.element_size()):
+        raise ValueError("hashgrid_encode: table rows must be aligned to "
+                         "their size")
+    levels = _kernel_levels(cfg)
+    n = x.shape[0]
+    out = torch.empty((n, cfg.out_dim), dtype=table.dtype, device=dev)
+    if n == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.arnerf_hashgrid_encode(
+            x.data_ptr(), table.data_ptr(), out.data_ptr(), n,
+            ctypes.byref(levels), int(table.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError("hashgrid_encode launch failed: "
+                           + lib.arnerf_hashgrid_error_string(err).decode())
+    global launches
+    launches += 1
+    return out
+
+
+def _encode_forward(table, x, cfg: HashGridConfig):
+    if table.device.type == "cpu":
+        return _encode_fwd_impl(table, x, cfg)
+    if table.device.type != "cuda":
+        raise ValueError(f"hashgrid_encode: unsupported device {table.device}")
+    return _encode_cuda(table, x, cfg)
+
+
 class _Encode(torch.autograd.Function):
     """Exact encode; the backward follows the JAX package's custom VJP
     (arnerf_tpu/ops/hashgrid.py:189-240)."""
@@ -173,7 +290,7 @@ class _Encode(torch.autograd.Function):
     def forward(ctx, table, x, cfg):
         ctx.cfg = cfg
         ctx.save_for_backward(table, x)
-        return _encode_fwd_impl(table, x, cfg)
+        return _encode_forward(table, x, cfg)
 
     @staticmethod
     def backward(ctx, gout):
@@ -275,7 +392,9 @@ def hashgrid_encode(table: torch.Tensor, x: torch.Tensor,
     is clamped); seed: None for the exact 8-corner trilerp, a uint32 int for
     the stochastic single-corner estimator. Returns (N, L*F) features in the
     table's dtype, level-major like tcnn. Differentiable in table (both
-    paths) and x (exact path).
+    paths) and x (exact path). The exact forward of a CUDA table goes to the
+    kernel (float32 or bfloat16, F = 2, contiguous x float32), a CPU table
+    to the plain version.
     """
     if seed is None:
         return _Encode.apply(table, x, cfg)

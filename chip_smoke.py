@@ -15,13 +15,16 @@ Phases (all run, even after a failure; any failure exits non-zero):
                  within F64_GATE of float64 where TF32 must not be) and
                  the segment sum in pack and exact mode at the training
                  step's shapes, on the real hash mapping of uniform
-                 positions in the hash-grid backward's grouped layout.
+                 positions in the hash-grid backward's grouped layout; the
+                 exact hash-grid encode (f32 and bf16 tables) at 2^18 rows
+                 and at a view's ~10.5 M, uniform and along rays.
   3. slice     - the eval entry point (`arnerf_tpu_torch.eval.main`, i.e.
                  render_test(fast=True, max_samples=96, T_threshold=1e-2))
                  renders the synthetic scene's 4 test views at 800x800 with
                  a full-width NGP (16 levels, 2^19 table, 64-wide MLPs) of
                  seeded random weights and the analytic occupancy grid, in
-                 bf16 and in f32; the fused-head launch counter must rise.
+                 bf16 and in f32; the fused-head and hash-grid encode
+                 launch counters must rise.
   4. train     - the train entry point (`arnerf_tpu_torch.train.main`)
                  trains the full-width NGP on the synthetic scene for one
                  1,000-step epoch (batch 8192, 400x400 images, bf16,
@@ -498,6 +501,110 @@ def head_gradient_check(rows, w, dev):
           flush=True)
 
 
+VIEW_FIELD_ROWS = 10_500_000    # rows the field evaluates in an 800x800 view
+
+
+def _hash_positions(layout, rows, dev, seed):
+    """`rows` positions in [0, 1]^3: "uniform", or "rays": 64 steps of
+    1/256 along each of rows/64 random rays, as a march's samples lie."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "uniform":
+        return torch.rand((rows, 3), generator=g, device=dev)
+    rays = -(-rows // 64)
+    o = torch.rand((rays, 1, 3), generator=g, device=dev) * 0.5 + 0.25
+    d = torch.nn.functional.normalize(
+        torch.randn((rays, 1, 3), generator=g, device=dev), dim=-1)
+    t = torch.arange(64, device=dev, dtype=torch.float32)[None, :, None]
+    return (o + d * t / 256).reshape(-1, 3)[:rows].clamp(0, 1).contiguous()
+
+
+def hashgrid_corner_sums(table, x, cfg):
+    """The plain version's products (the rows, weights, gather and product
+    of ops/hashgrid._encode_fwd_impl) summed in the corner order of
+    _CORNERS in float32 and cast to the table's type, as the kernel sums
+    them; and the sum of their magnitudes, float32."""
+    from arnerf_tpu_torch.ops import hashgrid as hg
+    flat, cw, _ = hg._indices_weights(x, cfg)
+    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+    feats = table[flat.reshape(-1)].reshape(n, L, 8, F)
+    w = (cw[0] * cw[1] * cw[2])[..., None].to(table.dtype)
+    prods = (feats * w).float()
+    acc = prods[:, :, 0]
+    for c in range(1, 8):
+        acc = acc + prods[:, :, c]
+    return (acc.reshape(n, L * F).to(table.dtype),
+            prods.abs().sum(2).reshape(n, L * F))
+
+
+def hashgrid_gaps(out, table, x, cfg):
+    """The kernel's output against the plain version: (entries that differ
+    from the plain products summed in corner order, which must be none;
+    the largest gap to _encode_fwd_impl over float32 eps x the row's sum of
+    |products|, after one ulp of the table's type: at most 7, the bound on
+    two orders of an 8-term float32 sum)."""
+    import torch
+    from arnerf_tpu_torch.ops import hashgrid as hg
+    seq, mag = hashgrid_corner_sums(table, x, cfg)
+    plain = hg._encode_fwd_impl(table, x, cfg).float()
+    off = int((out != seq).sum())
+    ulp = torch.zeros_like(plain)
+    if table.dtype == torch.bfloat16:   # the final rounding may differ
+        e = torch.frexp(plain).exponent
+        ulp = torch.where(plain == 0, 0.0, torch.ldexp(torch.ones_like(plain),
+                                                       e - 8))
+    gap = ((out.float() - plain).abs() - ulp).clamp(min=0) \
+        / (torch.finfo(torch.float32).eps * mag).clamp(min=1e-30)
+    return off, float(gap.max()) if gap.numel() else 0.0
+
+
+def hashgrid_kernel_numbers(dtype_name, rows, layout, dev):
+    """The exact encode's kernel (csrc/hashgrid.cu) at the full-width
+    synthetic grid: hashgrid_gaps (in ngp_forward_chunked's 2^18-row
+    chunks), kernel ms (a CUDA graph of launches, and eager), the plain
+    version's ms in those chunks, and the bound: 12 B in and L*F values out
+    a row at 3.35 TB/s, or the weights and multiply-adds at the f32
+    peak."""
+    import torch
+    from arnerf_tpu_torch.models import NGPConfig
+    from arnerf_tpu_torch.ops import hashgrid as hg
+    dtype = getattr(torch, dtype_name)
+    cfg = NGPConfig().hash_cfg
+    g = torch.Generator(device=dev).manual_seed(29)
+    table = (torch.rand((cfg.total_entries, 2), generator=g, device=dev)
+             * 2e-2 - 1e-2).to(dtype)
+    x = _hash_positions(layout, rows, dev, rows)
+    chunk = MAIN_PATH_ROWS
+
+    def plain():
+        return [hg._encode_fwd_impl(table, x[i:i + chunk], cfg)
+                for i in range(0, rows, chunk)]
+
+    hg.reset_launches()
+    out = hg.hashgrid_encode(table, x, cfg)
+    torch.cuda.synchronize()
+    assert hg.launches == 1, hg.launches
+    off, gap = 0, 0.0
+    for i in range(0, rows, chunk):
+        o, gp = hashgrid_gaps(out[i:i + chunk], table, x[i:i + chunk], cfg)
+        off, gap = off + o, max(gap, gp)
+    if off or gap > 7.0:
+        raise AssertionError(f"hashgrid[{dtype_name}]: {off} entries off the "
+                             f"corner-order sum, order gap {gap}")
+    iters = 20 if rows <= MAIN_PATH_ROWS else 3
+    ms = _time_graph_ms(lambda: hg.hashgrid_encode(table, x, cfg), iters)
+    eager_ms = _time_ms(lambda: hg.hashgrid_encode(table, x, cfg), iters)
+    plain_ms = _time_ms(plain, 2 if rows > MAIN_PATH_ROWS else 5)
+    L, F = cfg.n_levels, cfg.n_features
+    t_bytes = rows * (12 + L * F * table.element_size()) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = rows * L * 8 * (2 + 2 * F) / PEAK_FLOPS["float32"] * 1e3
+    return {"rows": rows, "layout": layout, "order_gap": gap, "ms": ms,
+            "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def _segment_updates(mode, dev):
     """The training step's segment-sum inputs at full width, in the layout
     the hash-grid backward passes: the real table rows of 262,144 uniform
@@ -672,11 +779,13 @@ def run_slice(ckpt, dtype_name):
     import torch
     from arnerf_tpu_torch import eval as port_eval
     from arnerf_tpu_torch.ops import fused_head as fh
+    from arnerf_tpu_torch.ops import hashgrid as hg
     argv = ["--dataset_name", "synthetic", "--downsample", "6.25",
             "--ckpt_path", ckpt, "--compute_dtype", dtype_name]
     fh.reset_launches()
+    hg.reset_launches()
     res = port_eval.main(argv)
-    launches = fh.launches
+    launches, encodes = fh.launches, hg.launches
     torch.cuda.synchronize()
     w, h = res["img_wh"]
     views = len(res["seconds_per_view"])
@@ -685,12 +794,15 @@ def run_slice(ckpt, dtype_name):
                              f"{w}x{h}")
     if launches == 0:
         raise AssertionError("the fused-head kernel was never launched")
+    if encodes == 0:
+        raise AssertionError("the hash-grid encode kernel was never launched")
     if min(res["total_samples"]) <= 0:
         raise AssertionError(f"empty render: {res['total_samples']}")
     ms = [1e3 * s for s in res["seconds_per_view"]]
     print(f"slice[{dtype_name}]: FPS {res['fps']} ms/view {ms} total samples "
           f"{res['total_samples']} fused-head launches {launches} "
-          f"({launches / views} per view) PSNR vs analytic GT {res['psnr']} "
+          f"({launches / views} per view) hash-grid encode launches "
+          f"{encodes} PSNR vs analytic GT {res['psnr']} "
           f"(random weights)", flush=True)
     return launches
 
@@ -3927,6 +4039,12 @@ def main() -> int:
               flush=True)
         state["f32_float64"] = head_float64_gate(MAIN_PATH_ROWS, w, dev)
         head_gradient_check(MAIN_PATH_ROWS, w, dev)
+        for dtype_name in ("float32", "bfloat16"):
+            for rows in (MAIN_PATH_ROWS, VIEW_FIELD_ROWS):
+                for layout in ("uniform", "rays"):
+                    nums = hashgrid_kernel_numbers(dtype_name, rows, layout,
+                                                   dev)
+                    print(f"hashgrid[{dtype_name}]: {nums}", flush=True)
         for mode in ("pack", "exact"):
             idx, vals, rows, n_levels = _segment_updates(mode, dev)
             nums = segment_sum_numbers(idx, vals, rows, mode == "pack",

@@ -365,3 +365,114 @@ def test_ar_frame_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch):
     assert outs[0][1].shape == (24, 24, 3) and np.isfinite(outs[0][1]).all()
     for a, b, tol in zip(*outs, (1e-3, 5e-3, 1e-3)):
         np.testing.assert_allclose(a, b, rtol=0, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# exact hash-grid encode, forward (csrc/hashgrid.cu)
+# ---------------------------------------------------------------------------
+
+def _hash_cfg(kind):
+    from arnerf_tpu_torch.ops import hashgrid as hg
+    levels, log2_t, base, scale = {
+        "synthetic": (16, 19, 16, 0.5), "unbounded": (16, 19, 16, 16.0),
+        "small": (4, 12, 4, 0.5)}[kind]
+    return hg.HashGridConfig(
+        n_levels=levels, log2_hashmap_size=log2_t, base_resolution=base,
+        per_level_scale=hg.ngp_growth_factor(scale, levels, base))
+
+
+def _hash_points(cfg, n, seed):
+    """Uniform points in [0, 1]^3 led by points on level-cell boundaries
+    (x*s + 0.5 integral), points outside [0, 1] (clamped), 0 and 1, as
+    tests/test_torch_ops.py's _encode_points; cut to n rows."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (max(n, 18), 3)).astype(np.float32)
+    for l, s in enumerate(cfg.scales[:6]):
+        x[l, :] = np.float32((np.floor(0.3 * s) + 0.5) / s)
+    x[8:16] = rng.uniform(-0.5, 1.5, (8, 3)).astype(np.float32)
+    x[16] = [0.0, 1.0, 0.0]
+    x[17] = [1.0, 1.0, 1.0]
+    return torch.from_numpy(x[:n].copy())
+
+
+def _hash_table(cfg, dtype, dev, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand((cfg.total_entries, 2), generator=g) * 2 - 1) \
+        .to(dtype).to(dev)
+
+
+@pytest.mark.parametrize("n", [0, 1, 1 << 18, (1 << 18) + 3])
+@pytest.mark.parametrize("kind", ["synthetic", "unbounded", "small"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hashgrid_kernel_matches_plain(dev, dtype, kind, n):
+    """The kernel against the plain version on the card: bit for bit equal
+    to the plain products summed in the corner order of _CORNERS, and
+    within the bound on two orders of an 8-term float32 sum (7 eps x the
+    sum of |products|; a bf16 table one bf16 ulp more) of
+    _encode_fwd_impl, whose torch.sum takes another order: near a sum that
+    cancels to 0, ulps of the sum itself say nothing. One launch a call,
+    none for no rows."""
+    import chip_smoke
+    from arnerf_tpu_torch.ops import hashgrid as hg
+    cfg = _hash_cfg(kind)
+    table = _hash_table(cfg, dtype, dev)
+    x = _hash_points(cfg, n, 10 + n).to(dev)
+    hg.reset_launches()
+    out = hg.hashgrid_encode(table, x, cfg)
+    torch.cuda.synchronize()
+    assert hg.launches == int(n > 0)
+    assert out.dtype == dtype and out.shape == (n, cfg.out_dim)
+    off, gap = chip_smoke.hashgrid_gaps(out, table, x, cfg)
+    assert off == 0
+    assert gap <= 7.0
+
+
+def test_hashgrid_gradients_with_the_kernel_forward(dev, monkeypatch):
+    """Table and position gradients through hashgrid_encode, whose
+    cotangent depends on the forward (loss = <out, g> + |out|^2 / 2), with
+    the kernel's forward and with the plain one on the card. The backward
+    is the plain one on both sides; its table sum runs atomics, in another
+    order each run: 1e-5 of the largest entry."""
+    from arnerf_tpu_torch.ops import hashgrid as hg
+    cfg = _hash_cfg("synthetic")
+    table = _hash_table(cfg, torch.float32, dev)
+    x = _hash_points(cfg, 4099, 5).to(dev)
+    g = torch.randn((4099, cfg.out_dim),
+                    generator=torch.Generator().manual_seed(6)).to(dev)
+
+    def grads():
+        t = table.clone().requires_grad_()
+        xx = x.clone().requires_grad_()
+        out = hg.hashgrid_encode(t, xx, cfg)
+        ((out * g).sum() + 0.5 * (out * out).sum()).backward()
+        return t.grad, xx.grad
+
+    hg.reset_launches()
+    kt, kx = grads()
+    assert hg.launches == 1
+    monkeypatch.setattr(hg, "_encode_forward", hg._encode_fwd_impl)
+    pt, px = grads()
+    assert hg.launches == 1
+    torch.testing.assert_close(kt, pt, rtol=0,
+                               atol=1e-5 * float(pt.abs().max()))
+    torch.testing.assert_close(kx, px, rtol=0,
+                               atol=1e-5 * float(px.abs().max()))
+
+
+def test_hashgrid_wrapper_refuses_bad_inputs(dev):
+    from arnerf_tpu_torch.ops import hashgrid as hg
+    cfg = _hash_cfg("small")
+    table = _hash_table(cfg, torch.float32, dev)
+    x = _hash_points(cfg, 64, 1).to(dev)
+    f4 = hg.HashGridConfig(n_levels=4, n_features=4, log2_hashmap_size=12,
+                           base_resolution=4,
+                           per_level_scale=cfg.per_level_scale)
+    with pytest.raises(ValueError, match="F = 2"):
+        hg.hashgrid_encode(torch.zeros((f4.total_entries, 4), device=dev),
+                           x, f4)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        hg.hashgrid_encode(table.half(), x, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        hg.hashgrid_encode(table, x.t().contiguous().t(), cfg)
+    with pytest.raises(ValueError, match="x is on cpu"):
+        hg.hashgrid_encode(table, x.cpu(), cfg)

@@ -218,7 +218,10 @@ def test_hashgrid_indices_full_width_match():
         _close(a, b)
 
 
-@pytest.mark.parametrize("levels", [(4, 12, 4), (16, 19, 16)])
+# (levels, log2 T, N_min, scale): a small grid, and the full width at the
+# synthetic (0.5) and the unbounded (16) configurations' growth factors
+@pytest.mark.parametrize("levels", [(4, 12, 4, 0.5), (16, 19, 16, 0.5),
+                                    (16, 19, 16, 16.0)])
 def test_hashgrid_encode_matches(levels):
     t_cfg, j_cfg = _hash_cfgs(*levels)
     rng = np.random.default_rng(5)
@@ -229,6 +232,44 @@ def test_hashgrid_encode_matches(levels):
     t = hashgrid_encode(_t(table), _t(x), t_cfg)
     assert t.shape == (1024, t_cfg.out_dim)
     _close(t, j)
+
+
+def test_hashgrid_cpu_encode_takes_plain_version_uncounted():
+    from arnerf_tpu_torch.ops import hashgrid as t_hg
+    t_cfg, _ = _hash_cfgs(4, 12, 4)
+    table = torch.rand((t_cfg.total_entries, 2),
+                       generator=torch.Generator().manual_seed(0))
+    x = _t(_encode_points(t_cfg, 64, 7))
+    t_hg.reset_launches()
+    out = hashgrid_encode(table, x, t_cfg)
+    assert torch.equal(out, t_hg._encode_fwd_impl(table, x, t_cfg))
+    assert t_hg.launches == 0
+
+
+@pytest.mark.parametrize("scale", [0.5, 16.0])
+def test_hashgrid_kernel_levels(scale):
+    """The kernel's level constants: each scale the float32 value the plain
+    version computes with, resolutions, offsets, hashed bits, T - 1."""
+    from arnerf_tpu_torch.ops import hashgrid as t_hg
+    t_cfg, _ = _hash_cfgs(16, 19, 16, scale)
+    lv = t_hg._kernel_levels(t_cfg)
+    scales, res, hashed, offsets = t_hg._level_tensors(t_cfg, "cpu")
+    L = t_cfg.n_levels
+    assert lv.n_levels == L and lv.table_mask == (1 << 19) - 1
+    np.testing.assert_array_equal(np.array(lv.scale[:L], np.float32),
+                                  scales.numpy())
+    assert list(lv.res[:L]) == res.tolist()
+    assert list(lv.offset[:L]) == offsets.tolist()
+    assert [bool(lv.hashed >> l & 1) for l in range(L)] == hashed.tolist()
+    assert lv.hashed >> L == 0
+    assert t_hg._kernel_levels(t_cfg) is lv      # built once a config
+
+
+def test_hashgrid_encode_refuses_other_devices():
+    t_cfg, _ = _hash_cfgs(4, 12, 4)
+    table = torch.zeros((t_cfg.total_entries, 2), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        hashgrid_encode(table, torch.zeros((8, 3), device="meta"), t_cfg)
 
 
 # ---------------------------------------------------------------------------

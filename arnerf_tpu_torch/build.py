@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "arnerf_tpu_torch"
-KERNEL_SOURCES = ("fused_head", "segment_sum", "hashgrid")
+KERNEL_SOURCES = ("fused_head", "segment_sum", "hashgrid", "marching")
 HOST_SOURCES = ("dataio",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

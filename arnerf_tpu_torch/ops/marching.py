@@ -19,19 +19,41 @@ order-preserving sorts, the JAX package's selection="sort" (its
 "search" selection gives the same sample sets and has no counterpart).
 While tracing is on (utils/profiling.py) they count, for the enclosing
 span's unit, the samples the buffer kept (its allocated slots).
+
+What runs where: `march_rays_test` on CUDA tensors launches the
+hand-written sm_90a kernel csrc/marching.cu, one launch a call (one warp a
+ray, candidates in registers, no sort), or raises; on CPU tensors it takes
+the plain version `_march_rays_test_plain`, whose float32 arithmetic the
+kernel repeats. The JAX package has no kernel for this march (plain XLA),
+so the kernel replaces none; it was added because the plain version led
+the view's device time. The wrapper counts its launches. The training
+marchers are plain PyTorch on every device.
 """
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import build
 from ..utils import profiling
 from .stepping import SQRT3, calc_dt, fma, lattice_t, mip_from_pos, \
     mip_from_dt
 
 COARSE_FACTOR = 8   # coarse supercell = 8^3 fine occupancy cells
+
+# march_rays_test kernel launches since the last reset (plain version calls
+# do not count)
+launches = 0
+
+
+def reset_launches():
+    global launches
+    launches = 0
 
 
 def pl_cdiv(a: int, b: int) -> int:
@@ -110,8 +132,33 @@ def march_rays_test(rays_o, rays_d, t_cur, t2, occ_flat, *,
     advances to the end of the last selected segment.
 
     Returns (xyzs (N,S,3), deltas (N,S), ts (N,S), n_eff (N,), t_next (N,)),
-    as the JAX counterpart (its docstring has the full contract).
+    as the JAX counterpart (its docstring has the full contract). CUDA
+    tensors go to the kernel (csrc/marching.cu), CPU tensors to the plain
+    version; both give the same values.
     """
+    kw = dict(scale=scale, cascades=cascades,
+              exp_step_factor=exp_step_factor, grid_size=grid_size,
+              max_samples=max_samples, n_candidates=n_candidates,
+              n_samples=n_samples, occ_coarse=occ_coarse, seg_cap=seg_cap,
+              dt_scale=dt_scale)
+    if rays_o.device.type == "cpu":
+        return _march_rays_test_plain(rays_o, rays_d, t_cur, t2, occ_flat,
+                                      **kw)
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"march_rays_test: unsupported device "
+                         f"{rays_o.device}")
+    return _march_cuda(rays_o, rays_d, t_cur, t2, occ_flat, **kw)
+
+
+def _march_rays_test_plain(rays_o, rays_d, t_cur, t2, occ_flat, *,
+                           scale: float, cascades: int,
+                           exp_step_factor: float, grid_size: int,
+                           max_samples: int, n_candidates: int,
+                           n_samples: int, occ_coarse=None,
+                           seg_cap: int = 32, dt_scale: float = None):
+    """march_rays_test in plain PyTorch: every candidate of the round as
+    (N, K) rows, each ray's eligible ones packed to the front by a
+    row-local sort."""
     N = rays_o.shape[0]
     dev = rays_o.device
     K, S = n_candidates, n_samples
@@ -216,6 +263,175 @@ def march_rays_test(rays_o, rays_d, t_cur, t2, occ_flat, *,
     # rays that scanned to/past t2 are finished; park the cursor beyond t2
     t_scan_end = lt(t_cur, scan_end_k)
     t_next = torch.where((n_eff < S) & (t_scan_end >= t2), t2 + 1.0, t_next)
+    return xyzs, deltas, ts, n_eff, t_next
+
+
+class _Params(ctypes.Structure):
+    """csrc/marching.cu's ArnerfMarchParams."""
+    _fields_ = [("n_rays", ctypes.c_int64),
+                ("t_cur_stride", ctypes.c_int64),
+                ("t2_stride", ctypes.c_int64),
+                ("o_stride", ctypes.c_int64 * 2),
+                ("d_stride", ctypes.c_int64 * 2),
+                ("n_candidates", ctypes.c_int32),
+                ("n_samples", ctypes.c_int32),
+                ("seg_cap", ctypes.c_int32),
+                ("two_level", ctypes.c_int32),
+                ("exp_steps", ctypes.c_int32),
+                ("cascades", ctypes.c_int32),
+                ("grid_size", ctypes.c_int32),
+                ("coarse_size", ctypes.c_int32)] \
+        + [(name, ctypes.c_float) for name in (
+            "lat_dt_min", "lat_dt_max", "lat_a", "lat_b", "lat_inv_dt_min",
+            "lat_log1pf", "lat_inv_log1pf", "step_factor", "dt_min",
+            "dt_max", "scale", "inv_coarse_bound")]
+
+
+def kernel_constants(*, scale: float, exp_step_factor: float,
+                     grid_size: int, max_samples: int,
+                     step_scale: float) -> dict:
+    """The kernel's float32 constants, each rounded as the plain version's
+    CUDA tensor ops round it: a Python number meeting a float32 tensor is
+    its nearest float32 (stepping.f32 for the fma operands), and a tensor
+    divided by a Python number is multiplied by the float32 reciprocal of
+    that number's float32 (`_march_rays_test_plain`'s `pos_s / mb`,
+    lattice_t's `/ dt_min` and `/ log1pf`)."""
+    f32 = np.float32
+    dt_min = SQRT3 / max_samples                       # calc_dt's
+    dt_max = SQRT3 * 2 * step_scale / grid_size
+    dt_lat = min(dt_min, dt_max)                       # lattice_t's
+    f = exp_step_factor
+    c = dict(lat_dt_min=f32(dt_lat), lat_dt_max=f32(dt_max),
+             step_factor=f32(f), dt_min=f32(dt_min), dt_max=f32(dt_max),
+             scale=f32(scale),
+             inv_coarse_bound=f32(1) / f32(min(0.5, scale)),
+             lat_a=f32(0), lat_b=f32(0), lat_inv_dt_min=f32(0),
+             lat_log1pf=f32(0), lat_inv_log1pf=f32(0))
+    if f != 0.0:
+        log1pf = math.log1p(f)
+        c.update(lat_a=f32(dt_lat / f), lat_b=f32(dt_max / f),
+                 lat_inv_dt_min=f32(1) / f32(dt_lat),
+                 lat_log1pf=f32(log1pf),
+                 lat_inv_log1pf=f32(1) / f32(log1pf))
+    return {k: float(v) for k, v in c.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _base_params(*, scale, cascades, exp_step_factor, grid_size,
+                 max_samples, n_candidates, n_samples, seg_cap, two_level,
+                 step_scale) -> bytes:
+    """The call's constants apart from the rays and their strides, built
+    once a configuration."""
+    p = _Params(n_candidates=n_candidates, n_samples=n_samples,
+                seg_cap=seg_cap, two_level=int(two_level),
+                exp_steps=int(exp_step_factor != 0.0), cascades=cascades,
+                grid_size=grid_size, coarse_size=grid_size // COARSE_FACTOR,
+                **kernel_constants(scale=scale,
+                                   exp_step_factor=exp_step_factor,
+                                   grid_size=grid_size,
+                                   max_samples=max_samples,
+                                   step_scale=step_scale))
+    return bytes(p)
+
+
+def _library():
+    lib = build.load("marching")
+    fn = lib.arnerf_march_rays_test
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.POINTER(_Params),
+                                                ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.arnerf_march_error_string.argtypes = [ctypes.c_int]
+        lib.arnerf_march_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_kernel_inputs(rays_o, rays_d, t_cur, t2, occ_flat, occ_coarse, *,
+                        cascades: int, grid_size: int, n_candidates: int,
+                        n_samples: int, seg_cap: int):
+    """Raise ValueError on what csrc/marching.cu does not take: inputs on
+    two devices; rays not (N, 3) float32 or t_cur, t2 not (N,) float32 (at
+    any strides); an occupancy grid that is not a contiguous 1-D uint8 or
+    bool tensor of at least C*G^3 cells, or (G/8)^3 for occ_coarse (read on
+    one cascade only); counts out of range."""
+    two_level = occ_coarse is not None and cascades == 1
+    grids = [("occ_flat", occ_flat, cascades * grid_size ** 3)]
+    if two_level:
+        grids.append(("occ_coarse", occ_coarse,
+                      (grid_size // COARSE_FACTOR) ** 3))
+    dev = rays_o.device
+    for x in (rays_d, t_cur, t2, *(g for _, g, _ in grids)):
+        if x.device != dev:
+            raise ValueError(f"march_rays_test: inputs on {dev} and "
+                             f"{x.device}")
+    n = rays_o.shape[0] if rays_o.ndim else -1
+    for name, x in (("rays_o", rays_o), ("rays_d", rays_d)):
+        if x.dtype != torch.float32 or tuple(x.shape) != (n, 3):
+            raise ValueError(f"march_rays_test: {name} must be (N, 3) "
+                             f"float32, got {x.dtype} {tuple(x.shape)}")
+    for name, x in (("t_cur", t_cur), ("t2", t2)):
+        if x.dtype != torch.float32 or tuple(x.shape) != (n,):
+            raise ValueError(f"march_rays_test: {name} must be ({n},) "
+                             f"float32, got {x.dtype} {tuple(x.shape)}")
+    for name, g, cells in grids:
+        if g.dtype not in (torch.uint8, torch.bool) or g.ndim != 1 \
+                or not g.is_contiguous() or g.numel() < cells:
+            raise ValueError(f"march_rays_test: {name} must be a contiguous "
+                             f"1-D uint8 or bool grid of at least {cells} "
+                             f"cells, got {g.dtype} {tuple(g.shape)}")
+    if cascades < 1 or grid_size < (COARSE_FACTOR if two_level else 1):
+        raise ValueError(f"march_rays_test: {cascades} cascades of "
+                         f"{grid_size}^3 cells")
+    if not (1 <= n_candidates < 1 << 24 and 1 <= n_samples < 1 << 24
+            and (not two_level or 1 <= seg_cap < 1 << 24)):
+        raise ValueError(f"march_rays_test: n_candidates {n_candidates}, "
+                         f"n_samples {n_samples}, seg_cap {seg_cap}: the "
+                         f"kernel takes 1 to 2^24 - 1")
+
+
+def _march_cuda(rays_o, rays_d, t_cur, t2, occ_flat, *, scale: float,
+                cascades: int, exp_step_factor: float, grid_size: int,
+                max_samples: int, n_candidates: int, n_samples: int,
+                occ_coarse, seg_cap: int, dt_scale):
+    """march_rays_test on the card: one launch of csrc/marching.cu."""
+    check_kernel_inputs(rays_o, rays_d, t_cur, t2, occ_flat, occ_coarse,
+                        cascades=cascades, grid_size=grid_size,
+                        n_candidates=n_candidates, n_samples=n_samples,
+                        seg_cap=seg_cap)
+    two_level = occ_coarse is not None and cascades == 1
+    N, S = rays_o.shape[0], n_samples
+    dev = rays_o.device
+    xyzs = torch.empty((N, S, 3), dtype=torch.float32, device=dev)
+    deltas = torch.empty((N, S), dtype=torch.float32, device=dev)
+    ts = torch.empty((N, S), dtype=torch.float32, device=dev)
+    n_eff = torch.empty((N,), dtype=torch.int64, device=dev)
+    t_next = torch.empty((N,), dtype=torch.float32, device=dev)
+    if N == 0:
+        return xyzs, deltas, ts, n_eff, t_next
+    params = _Params.from_buffer_copy(_base_params(
+        scale=scale, cascades=cascades, exp_step_factor=exp_step_factor,
+        grid_size=grid_size, max_samples=max_samples,
+        n_candidates=n_candidates, n_samples=S,
+        seg_cap=seg_cap if two_level else 0, two_level=two_level,
+        step_scale=scale if dt_scale is None else dt_scale))
+    params.n_rays = N
+    params.t_cur_stride, params.t2_stride = t_cur.stride(0), t2.stride(0)
+    params.o_stride[:] = rays_o.stride()
+    params.d_stride[:] = rays_d.stride()
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.arnerf_march_rays_test(
+            rays_o.data_ptr(), rays_d.data_ptr(), t_cur.data_ptr(),
+            t2.data_ptr(), occ_flat.data_ptr(),
+            occ_coarse.data_ptr() if two_level else None, xyzs.data_ptr(),
+            deltas.data_ptr(), ts.data_ptr(), n_eff.data_ptr(),
+            t_next.data_ptr(), ctypes.byref(params), stream)
+    if err:
+        raise RuntimeError("march_rays_test launch failed: "
+                           + lib.arnerf_march_error_string(err).decode())
+    global launches
+    launches += 1
     return xyzs, deltas, ts, n_eff, t_next
 
 

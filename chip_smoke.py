@@ -605,6 +605,118 @@ def hashgrid_kernel_numbers(dtype_name, rows, layout, dev):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+# march_rays_test's modes: (scale, grid, max_samples, exp_step_factor,
+# seg_cap): the view's scene and steps on the single-level path, the
+# two-level path, its truncation, and mip-NeRF 360's scale on the
+# single-level path: six cascades, exponential steps, rays from inside the
+# box (march_inputs). The "odd" modes divide by a scale that is no power of
+# two: the cell bound min(0.5, 0.3) and the supercell bound of one cascade,
+# and the outer cascade's bound min(8, 6) of five.
+MARCH_MODES = {"single": (0.5, 128, 96, 0.0, None),
+               "coarse": (0.5, 128, 96, 0.0, 32),
+               "coarse_truncated": (0.5, 128, 96, 0.0, 2),
+               "multi_cascade": (16.0, 128, 1024, 1 / 256, None),
+               "coarse_odd_scale": (0.3, 128, 96, 0.0, 32),
+               "multi_cascade_odd_scale": (6.0, 128, 1024, 1 / 256, None)}
+VIEW_MARCH_RAYS = 1 << 16        # render_test's chunk: one march call
+# the view's march calls: (S, K) of a round (samples_per_round 32 at
+# n_candidates 512) and of first_hit's passes (S = 1, K covering the box)
+VIEW_MARCH_SHAPES = ((32, 512), (1, 97))
+
+
+def march_inputs(mode, dev, n=4096, seed=9):
+    """Inputs and keywords of one march_rays_test call in `mode`: the
+    analytic scene's occupancy (and the dilated supercell grid of the
+    two-level modes), the box's hits as scene_hits gives them (misses at
+    (-1, -1), the cursor at t2 + 1), cursors spread through the box (a
+    third at t1), every seventh hit parked past t2, and t2 a strided view
+    of the hits, as the renderer passes it. Rays: n from a sphere of 1.3 x
+    scale around the box towards points inside it, every fifth turned away
+    (it misses the box); in the multi-cascade modes n from points inside
+    the box, as a capture's cameras (every 13th from a corner along the
+    diagonal), whose rays cross the lattice's three stretches (dt_min,
+    exponential, dt_max), over an occupancy at density 1 (the trainer's
+    threshold lies above the analytic scene's 90 / 16 at scale 16)."""
+    import numpy as np
+    import torch
+    from arnerf_tpu_torch.datasets.synthetic import (DENSITY_THRESHOLD,
+                                                     analytic_occupancy)
+    from arnerf_tpu_torch.ops import marching
+    from arnerf_tpu_torch.ops.intersection import ray_aabb_intersect_single
+    scale, G, max_samples, f, seg_cap = MARCH_MODES[mode]
+    cascades = max(1 + int(np.ceil(np.log2(2 * scale))), 1)
+    inside = mode.startswith("multi_cascade")
+    occ = analytic_occupancy(scale, G, cascades, device=dev,
+                             threshold=1.0 if inside else DENSITY_THRESHOLD)
+    rng = np.random.default_rng(seed)
+    if inside:    # every 13th from a corner along the diagonal, past B
+        o = rng.uniform(-0.95 * scale, 0.95 * scale, (n, 3))
+        d = rng.normal(size=(n, 3))
+        o[::13] = -0.95 * scale
+        d[::13] = 1.0 + 0.05 * d[::13]
+    else:
+        o = rng.normal(size=(n, 3))
+        o = o / np.linalg.norm(o, axis=1, keepdims=True) * 1.3 * scale
+        d = rng.uniform(-0.6 * scale, 0.6 * scale, (n, 3)) - o
+        d[::5] *= -1.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = torch.from_numpy(o.astype(np.float32))
+    d = torch.from_numpy(d.astype(np.float32))
+    hits = ray_aabb_intersect_single(o, d, torch.zeros(3),
+                                     torch.full((3,), scale))
+    t1, t2 = hits[:, 0], hits[:, 1]
+    u = torch.from_numpy(rng.uniform(size=n).astype(np.float32))
+    u[: n // 3] = 0.0
+    t_cur = torch.where(t1 >= 0, t1 + u * (t2 - t1), t2 + 1.0)
+    t_cur[::7] = torch.where(t1[::7] >= 0, t2[::7] + 1.0, t_cur[::7])
+    kw = dict(scale=scale, cascades=cascades, exp_step_factor=f,
+              grid_size=G, max_samples=max_samples,
+              dt_scale=float(cascades))
+    if seg_cap is not None:
+        kw.update(seg_cap=seg_cap, occ_coarse=marching.build_coarse_occupancy(
+            occ, cascades, G, dilate=marching.coarse_dilation_radius(
+                scale=scale, exp_step_factor=f, grid_size=G,
+                max_samples=max_samples, dt_scale=float(cascades))))
+    return (o.to(dev), d.to(dev), t_cur.to(dev), hits.to(dev)[:, 1],
+            occ), kw
+
+
+def march_kernel_numbers(n_samples, n_candidates, dev):
+    """The test-time march's kernel (csrc/marching.cu) at a view's call:
+    65,536 rays of the view's scene on the two-level path (march_inputs'
+    "coarse"), S = n_samples, K = n_candidates. Its outputs against the
+    plain version's (torch.equal), its launches a call, its ms (a CUDA
+    graph of launches, and eager), the plain version's ms, and the bound:
+    32 B a ray read (o, d, t_cur, t2) and 20 B a slot and 12 B a ray
+    written, once, at 3.35 TB/s."""
+    import torch
+    from arnerf_tpu_torch.ops import marching
+    args, kw = march_inputs("coarse", dev, n=VIEW_MARCH_RAYS, seed=33)
+    kw.update(n_samples=n_samples, n_candidates=n_candidates)
+    marching.reset_launches()
+    got = marching.march_rays_test(*args, **kw)
+    torch.cuda.synchronize()
+    per_call = marching.launches
+    want = marching._march_rays_test_plain(*args, **kw)
+    off = [name for name, a, b in zip(
+        ("xyzs", "deltas", "ts", "n_eff", "t_next"), got, want)
+        if not torch.equal(a, b)]
+    if off or per_call != 1:
+        raise AssertionError(f"march[S={n_samples},K={n_candidates}]: "
+                             f"{per_call} launches, outputs off the plain "
+                             f"version: {off}")
+    ms = _time_graph_ms(lambda: marching.march_rays_test(*args, **kw), 20)
+    eager_ms = _time_ms(lambda: marching.march_rays_test(*args, **kw), 20)
+    plain_ms = _time_ms(
+        lambda: marching._march_rays_test_plain(*args, **kw), 5)
+    n = VIEW_MARCH_RAYS
+    bound_ms = n * (32 + 20 * n_samples + 12) / HBM_BYTES_PER_S * 1e3
+    return {"rays": n, "n_samples": n_samples, "n_candidates": n_candidates,
+            "samples": int(got[3].sum()), "launches_per_call": per_call,
+            "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
 def _segment_updates(mode, dev):
     """The training step's segment-sum inputs at full width, in the layout
     the hash-grid backward passes: the real table rows of 262,144 uniform
@@ -780,12 +892,14 @@ def run_slice(ckpt, dtype_name):
     from arnerf_tpu_torch import eval as port_eval
     from arnerf_tpu_torch.ops import fused_head as fh
     from arnerf_tpu_torch.ops import hashgrid as hg
+    from arnerf_tpu_torch.ops import marching
     argv = ["--dataset_name", "synthetic", "--downsample", "6.25",
             "--ckpt_path", ckpt, "--compute_dtype", dtype_name]
     fh.reset_launches()
     hg.reset_launches()
+    marching.reset_launches()
     res = port_eval.main(argv)
-    launches, encodes = fh.launches, hg.launches
+    launches, encodes, marches = fh.launches, hg.launches, marching.launches
     torch.cuda.synchronize()
     w, h = res["img_wh"]
     views = len(res["seconds_per_view"])
@@ -796,13 +910,16 @@ def run_slice(ckpt, dtype_name):
         raise AssertionError("the fused-head kernel was never launched")
     if encodes == 0:
         raise AssertionError("the hash-grid encode kernel was never launched")
+    if marches == 0:
+        raise AssertionError("the test-time march kernel was never launched")
     if min(res["total_samples"]) <= 0:
         raise AssertionError(f"empty render: {res['total_samples']}")
     ms = [1e3 * s for s in res["seconds_per_view"]]
     print(f"slice[{dtype_name}]: FPS {res['fps']} ms/view {ms} total samples "
           f"{res['total_samples']} fused-head launches {launches} "
           f"({launches / views} per view) hash-grid encode launches "
-          f"{encodes} PSNR vs analytic GT {res['psnr']} "
+          f"{encodes} march launches {marches} ({marches / views} per "
+          f"view) PSNR vs analytic GT {res['psnr']} "
           f"(random weights)", flush=True)
     return launches
 
@@ -4045,6 +4162,10 @@ def main() -> int:
                     nums = hashgrid_kernel_numbers(dtype_name, rows, layout,
                                                    dev)
                     print(f"hashgrid[{dtype_name}]: {nums}", flush=True)
+        for n_samples, n_candidates in VIEW_MARCH_SHAPES:
+            nums = march_kernel_numbers(n_samples, n_candidates, dev)
+            print(f"march[S={n_samples},K={n_candidates}]: {nums}",
+                  flush=True)
         for mode in ("pack", "exact"):
             idx, vals, rows, n_levels = _segment_updates(mode, dev)
             nums = segment_sum_numbers(idx, vals, rows, mode == "pack",

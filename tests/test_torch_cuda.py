@@ -476,3 +476,128 @@ def test_hashgrid_wrapper_refuses_bad_inputs(dev):
         hg.hashgrid_encode(table, x.t().contiguous().t(), cfg)
     with pytest.raises(ValueError, match="x is on cpu"):
         hg.hashgrid_encode(table, x.cpu(), cfg)
+
+
+# ---------------------------------------------------------------------------
+# test-time march (csrc/marching.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_candidates", [97, 512])
+@pytest.mark.parametrize("n_samples", [1, 32, 64])
+@pytest.mark.parametrize("mode", ["single", "coarse", "coarse_truncated",
+                                  "multi_cascade", "coarse_odd_scale",
+                                  "multi_cascade_odd_scale"])
+def test_march_kernel_matches_plain(dev, mode, n_samples, n_candidates):
+    """The kernel against the plain version on the same CUDA tensors,
+    torch.equal on every output (the kernel repeats the plain version's
+    float32 operations); one launch a call."""
+    import chip_smoke
+    from arnerf_tpu_torch.ops import marching
+    args, kw = chip_smoke.march_inputs(mode, dev)
+    kw.update(n_candidates=n_candidates, n_samples=n_samples)
+    marching.reset_launches()
+    got = marching.march_rays_test(*args, **kw)
+    torch.cuda.synchronize()
+    assert marching.launches == 1
+    want = marching._march_rays_test_plain(*args, **kw)
+    assert marching.launches == 1
+    names = ("xyzs", "deltas", "ts", "n_eff", "t_next")
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if not torch.equal(a, b):
+            bad = (a != b).reshape(a.shape[0], -1).any(dim=1)
+            raise AssertionError(
+                f"{name}: {int(bad.sum())} of {a.shape[0]} rays differ, "
+                f"first {int(torch.nonzero(bad)[0, 0])}")
+    n_eff = got[3]
+    assert int(n_eff.sum()) > 0
+    assert bool((n_eff == 0).any())
+    if n_samples == 1:
+        assert bool((n_eff == 1).any())
+    if mode == "coarse_truncated":     # truncated rays stop short of t2
+        t2 = args[3]
+        assert bool(((n_eff < n_samples) & (got[4] < t2)).any())
+
+
+def test_march_kernel_without_rays(dev):
+    import chip_smoke
+    from arnerf_tpu_torch.ops import marching
+    args, kw = chip_smoke.march_inputs("coarse", dev, n=8)
+    args = tuple(a[:0] for a in args[:4]) + args[4:]
+    marching.reset_launches()
+    out = marching.march_rays_test(*args, n_candidates=512, n_samples=32,
+                                   **kw)
+    assert marching.launches == 0
+    assert [tuple(x.shape) for x in out] == [(0, 32, 3), (0, 32), (0, 32),
+                                             (0,), (0,)]
+
+
+def _view_scene(dev):
+    """Full-width seeded weights at the view's scale, the analytic
+    occupancy, and march_inputs' 128 x 128 rays around the box."""
+    import chip_smoke
+    from arnerf_tpu_torch.datasets.synthetic import analytic_occupancy
+    from arnerf_tpu_torch.models import NGPConfig, grid_state_init, ngp_init
+    cfg = NGPConfig(scale=0.5)
+    params = ngp_init(cfg, torch.Generator().manual_seed(0), dev)
+    occ = analytic_occupancy(cfg.scale, cfg.grid_size, cfg.cascades,
+                             device=dev)
+    state = grid_state_init(cfg, dev)._replace(occ_flat=occ)
+    (o, d, *_), _ = chip_smoke.march_inputs("coarse", dev, n=128 * 128,
+                                            seed=21)
+    return cfg, params, state, o, d
+
+
+def test_first_hit_and_render_through_the_kernel(dev, monkeypatch):
+    """first_hit and render_test(fast=True) at the view's settings: the
+    same alive set, first t, image and sample total through the kernel as
+    through the plain version, with launches only on the kernel's side."""
+    from arnerf_tpu_torch import rendering
+    from arnerf_tpu_torch.ops import marching
+    cfg, params, state, o, d = _view_scene(dev)
+    view = dict(fast=True, max_samples=96, samples_per_round=32,
+                T_threshold=1e-2, chunk=4096)
+    hits = rendering.scene_hits(o, d, cfg)
+    coarse = rendering._coarse_occupancy(state, cfg, 0.0, 96, 1.0)
+
+    def run():
+        fh = rendering.first_hit(state.occ_flat, coarse, o, d, hits, cfg,
+                                 max_samples=96, n_candidates=97,
+                                 dt_scale=1.0)
+        return fh, rendering.render_test(params, state, o, d, cfg, **view)
+
+    marching.reset_launches()
+    (alive, t_first), img = run()
+    torch.cuda.synchronize()
+    kernel_launches = marching.launches
+    monkeypatch.setattr(rendering, "march_rays_test",
+                        marching._march_rays_test_plain)
+    (alive_p, t_first_p), img_p = run()
+    assert marching.launches == kernel_launches > 0
+    assert torch.equal(alive, alive_p) and torch.equal(t_first, t_first_p)
+    assert bool(alive.any()) and not bool(alive.all())
+    assert img["total_samples"] == img_p["total_samples"] > 0
+    for key in ("rgb", "depth", "opacity"):
+        assert torch.equal(img[key], img_p[key]), key
+
+
+def test_march_wrapper_refuses_bad_inputs(dev):
+    import chip_smoke
+    from arnerf_tpu_torch.ops import marching
+    (o, d, t_cur, t2, occ), kw = chip_smoke.march_inputs("coarse", dev, n=64)
+    kw.update(n_candidates=512, n_samples=32)
+    march = marching.march_rays_test
+    with pytest.raises(ValueError, match="inputs on"):
+        march(o, d, t_cur, t2, occ.cpu(), **kw)
+    with pytest.raises(ValueError, match="rays_d must be"):
+        march(o, d.double(), t_cur, t2, occ, **kw)
+    with pytest.raises(ValueError, match="rays_o must be"):
+        march(o[:, :2], d, t_cur, t2, occ, **kw)
+    with pytest.raises(ValueError, match="t2 must be"):
+        march(o, d, t_cur, t2[:-1], occ, **kw)
+    with pytest.raises(ValueError, match="occ_flat must be"):
+        march(o, d, t_cur, t2, occ.int(), **kw)
+    with pytest.raises(ValueError, match="occ_coarse must be"):
+        march(o, d, t_cur, t2, occ, **{**kw, "occ_coarse": occ[:64]})
+    with pytest.raises(ValueError, match="1 to 2"):
+        march(o, d, t_cur, t2, occ, **{**kw, "n_samples": 0})

@@ -32,6 +32,7 @@ from arnerf_tpu.ops.trunc_exp import trunc_exp as j_trunc_exp
 
 from arnerf_tpu_torch.ops import stepping as t_step
 from arnerf_tpu_torch.ops import fused_head as t_fused
+from arnerf_tpu_torch.ops import marching as t_marching
 from arnerf_tpu_torch.ops.composite import composite_test_step
 from arnerf_tpu_torch.ops.hashgrid import (HashGridConfig, hashgrid_encode,
                                            _indices_weights)
@@ -402,8 +403,10 @@ def test_march_rays_test_matches(mode):
     j = j_march(jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_cur),
                 jnp.asarray(t2), jnp.asarray(occ), occ_coarse=j_coarse_occ,
                 **kw)
+    t_marching.reset_launches()
     t = march_rays_test(_t(o), _t(d), _t(t_cur), _t(t2), _t(occ),
                         occ_coarse=t_coarse_occ, **kw)
+    assert t_marching.launches == 0      # CPU tensors: the plain version
     xyzs, deltas, ts, n_eff, t_next = t
     np.testing.assert_array_equal(n_eff.numpy(), np.asarray(j[3]))
     assert int(n_eff.sum()) > 0
@@ -411,6 +414,116 @@ def test_march_rays_test_matches(mode):
         _close(a, b, rtol=1e-6)
     if mode == "coarse_truncated":
         assert (n_eff < 16).any()
+
+
+def _march_inputs():
+    """Port-side inputs of a two-level march_rays_test call on the CPU."""
+    occ, cascades = _occupancy(0.5, 32)
+    o, d = _rays(128, 11)
+    hits = ray_aabb_intersect_single(_t(o), _t(d), torch.zeros(3),
+                                     torch.full((3,), 0.5))
+    t2 = hits[:, 1]
+    t_cur = torch.where(hits[:, 0] >= 0, hits[:, 0] + 0.01, t2 + 1.0)
+    coarse = build_coarse_occupancy(_t(occ), cascades, 32, dilate=2)
+    kw = dict(scale=0.5, cascades=cascades, exp_step_factor=0.0,
+              grid_size=32, max_samples=96, n_candidates=128, n_samples=16,
+              dt_scale=1.0, occ_coarse=coarse)
+    return (_t(o), _t(d), t_cur, t2, _t(occ)), kw
+
+
+def test_march_rays_test_refuses_other_devices():
+    args, kw = _march_inputs()
+    kw["occ_coarse"] = kw["occ_coarse"].to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        march_rays_test(*(a.to("meta") for a in args), **kw)
+
+
+# (scale, exp_step_factor, grid_size, max_samples, step_scale): the view,
+# eval, mip-NeRF 360's six cascades (dt_scale = cascades), and a dt_min
+# above dt_max, where the lattice steps by dt_max
+_KERNEL_STEPS = [(0.5, 0.0, 128, 96, 1.0), (0.5, 0.0, 128, 1024, 1.0),
+                 (16.0, 1 / 256, 128, 1024, 6.0), (0.5, 0.0, 128, 8, 0.25),
+                 (0.25, 1 / 256, 64, 1024, 3.0)]
+
+
+@pytest.mark.parametrize("steps", _KERNEL_STEPS)
+def test_march_kernel_constants(steps):
+    """The float32 constants csrc/marching.cu takes are the plain
+    version's: the lattice's step and calc_dt's clamp read back from
+    stepping.lattice_t and stepping.calc_dt, and every one the float32
+    rounding of stepping's Python number (for a number that divides a
+    tensor on the card, the float32 reciprocal of that rounding)."""
+    scale, f, G, ms, step_scale = steps
+    c = t_marching.kernel_constants(scale=scale, exp_step_factor=f,
+                                  grid_size=G, max_samples=ms,
+                                  step_scale=step_scale)
+    f32 = np.float32
+    dt_min = t_step.SQRT3 / ms
+    dt_max = t_step.SQRT3 * 2 * step_scale / G
+    dt_lat = min(dt_min, dt_max)
+    kw = dict(exp_step_factor=f, max_samples=ms, grid_size=G,
+              scale=step_scale)
+    zero = torch.zeros(1)
+    assert c["lat_dt_min"] == f32(dt_lat) \
+        == float(t_step.lattice_t(zero, torch.ones(1), **kw))
+    assert min(c["dt_min"], c["dt_max"]) == float(t_step.calc_dt(zero, **kw))
+    if f > 0:
+        assert c["dt_max"] == float(t_step.calc_dt(torch.full((1,), 1e30),
+                                                   **kw))
+    assert c["dt_min"] == f32(dt_min) and c["dt_max"] == f32(dt_max)
+    assert c["lat_dt_max"] == f32(dt_max) and c["step_factor"] == f32(f)
+    assert c["scale"] == f32(scale)
+    assert c["inv_coarse_bound"] == f32(1) / f32(min(0.5, scale))
+    if f > 0:
+        assert c["lat_a"] == f32(dt_lat / f)
+        assert c["lat_b"] == f32(dt_max / f)
+        assert c["lat_inv_dt_min"] == f32(1) / f32(dt_lat)
+        assert c["lat_log1pf"] == f32(np.log1p(f))
+        assert c["lat_inv_log1pf"] == f32(1) / f32(np.log1p(f))
+    else:
+        assert c["lat_a"] == c["lat_b"] == c["lat_log1pf"] == 0.0
+
+
+def _bad_march_inputs(case):
+    """One argument of a good two-level call (test_march_kernel_input_checks)
+    spoilt as `case` says."""
+    (o, d, t_cur, t2, occ), kw = _march_inputs()
+    args = dict(rays_o=o, rays_d=d, t_cur=t_cur, t2=t2, occ_flat=occ,
+                occ_coarse=kw["occ_coarse"])
+    checks = dict(cascades=kw["cascades"], grid_size=kw["grid_size"],
+                  n_candidates=512, n_samples=32, seg_cap=32)
+    spoil = {
+        "good": lambda: None,
+        "rays_o": lambda: args.update(rays_o=o[:, :2]),
+        "rays_d": lambda: args.update(rays_d=d.double()),
+        "t_cur": lambda: args.update(t_cur=t_cur[:, None]),
+        "t2": lambda: args.update(t2=t2[:-1]),
+        "occ_flat": lambda: args.update(occ_flat=occ.float()),
+        "occ_coarse": lambda: args.update(occ_coarse=occ[:8]),
+        "1 to 2": lambda: checks.update(n_samples=0),
+    }
+    spoil[case]()
+    return args, checks
+
+
+@pytest.mark.parametrize("case", ["good", "rays_o", "rays_d", "t_cur", "t2",
+                                  "occ_flat", "occ_coarse", "1 to 2"])
+def test_march_kernel_input_checks(case):
+    """The kernel wrapper's checks, on CPU tensors: each spoilt argument
+    raises, naming it; the good call and bool grids pass, and the coarse
+    grid is not read on more than one cascade."""
+    args, checks = _bad_march_inputs(case)
+    if case == "good":
+        t_marching.check_kernel_inputs(*args.values(), **checks)
+        args["occ_flat"] = args["occ_flat"].bool()
+        t_marching.check_kernel_inputs(*args.values(), **checks)
+        args["occ_coarse"] = args["occ_coarse"][:8]
+        t_marching.check_kernel_inputs(
+            *args.values(), **{**checks, "cascades": 2,
+                               "grid_size": checks["grid_size"] // 2})
+        return
+    with pytest.raises(ValueError, match=case):
+        t_marching.check_kernel_inputs(*args.values(), **checks)
 
 
 def test_composite_test_step_matches():
